@@ -84,11 +84,17 @@ def test_implicit_stability(small_case):
     assert float(np.abs(pp).max()) < 10 * amp0
 
 
-def test_fused_kernel_matches_composition(small_case):
-    """One fused pallas call (fuse_w) == advance_mu_t golden followed by
-    advance_w golden on the updated theta."""
-    from wrf_tpu.ops.advance_mu_t_pallas import advance_mu_t_pallas
+def test_fused_kernel_matches_composition(small_case, monkeypatch):
+    """One fused kernel call (Pallas interpreter, ragged (2, 8) column
+    tiles) == advance_mu_t golden followed by advance_w golden on the
+    updated theta."""
+    import jax.numpy as jnp
+
+    from wrf_tpu.ops import substep_triton as kernel_module
+    from wrf_tpu.ops.advance_mu_t_jnp import window_masks
     from wrf_tpu.ops.reference_numpy import advance_mu_t_numpy
+    from wrf_tpu.ops.substep_triton import substep_triton
+    monkeypatch.setattr(kernel_module, "BLOCK", (2, 8))
     case = small_case
     kw = case.kernel_kwargs()
     i0, i1, j0, j1, k0, k1 = case.bounds.loop_bounds(case.flags)
@@ -100,13 +106,14 @@ def test_fused_kernel_matches_composition(small_case):
         window=(i0, i1, j0, j1), k0=k0, k1=k1,
     )
     names = ("ww", "ww_1", "u", "u_1", "v", "v_1", "mu", "mut", "muu", "muv",
-             "t", "t_1", "ft", "mu_tend", "dnw", "fnm", "fnp", "rdnw",
-             "msfuy", "msfvx_inv", "msftx", "msfty", "rdx", "rdy", "dts",
-             "epssm")
-    out = advance_mu_t_pallas(
-        **{k: kw[k] for k in names}, t_ave=kw["t_ave"],
-        window=(i0, i1, j0, j1), k0=k0, k1=k1, kde=case.bounds.kdim - 1,
-        fuse_w=True, w=f["grid_w"], pp=f["grid_pp"], rdn=f["grid_rdn"],
+             "t", "t_1", "t_ave", "ft", "mu_tend", "dnw", "fnm", "fnp",
+             "rdnw", "msfuy", "msfvx_inv", "msftx", "msfty", "rdx", "rdy",
+             "dts", "epssm")
+    i_mask, j_mask = (jnp.asarray(m)
+                      for m in window_masks(case.bounds, case.flags))
+    out = substep_triton(
+        **{k: kw[k] for k in names}, i_mask=i_mask, j_mask=j_mask,
+        k0=k0, k1=k1, w=f["grid_w"], pp=f["grid_pp"], rdn=f["grid_rdn"],
         cw=DEFAULT_CW, gw=DEFAULT_GW, interpret=True,
     )
     outputs_allclose(
@@ -121,7 +128,8 @@ def loop_with_w_vs_golden(case, mesh_shape, steps, kernel, **tol):
     mesh = make_mesh(jax.devices()[: mesh_shape[0] * mesh_shape[1]], mesh_shape)
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     loop = SmallStepLoop(mesh, nx, ny, nz, case.flags, n_steps=steps,
-                         kernel=kernel, with_w=True)
+                         kernel=kernel, with_w=True,
+                         interpret=kernel == "triton")
     arrays = loop.prepare(case_to_domain(case, with_w=True))
     got_dom = loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
 
@@ -131,10 +139,10 @@ def loop_with_w_vs_golden(case, mesh_shape, steps, kernel, **tol):
 
 
 @pytest.mark.parametrize("mesh_shape,kernel", [
-    ((4, 2), "pallas"),   # the production kernel, sharded: quick
-    ((1, 1), "xla"),      # the cross-check kernel, single: quick
+    ((4, 2), "triton"),   # the default kernel, sharded: quick
+    ((1, 1), "xla"),      # the XLA path, single: quick
     pytest.param((4, 2), "xla", marks=pytest.mark.full),
-    pytest.param((1, 1), "pallas", marks=pytest.mark.full),
+    pytest.param((1, 1), "triton", marks=pytest.mark.full),
 ])
 def test_coupled_loop_with_w(small_case, mesh_shape, kernel):
     """Full coupled loop (uv + mu/t + implicit w) reassembles to the golden
@@ -145,5 +153,5 @@ def test_coupled_loop_with_w(small_case, mesh_shape, kernel):
 
 @pytest.mark.full
 def test_coupled_loop_with_w_100_steps(small_case):
-    loop_with_w_vs_golden(small_case, (2, 4), steps=100, kernel="pallas",
+    loop_with_w_vs_golden(small_case, (2, 4), steps=100, kernel="triton",
                           rtol=2e-4, atol_scale=2e-5)

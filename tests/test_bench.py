@@ -1,13 +1,10 @@
-"""End-to-end validation of bench.py's config matrix plumbing.
+"""bench.py's plumbing, run small on the CPU.
 
-The round-end bench runs on real hardware at production sizes; what CAN
-break silently between rounds is the plumbing — a spec row naming a
-loop/flag combination that no longer constructs, or the headline
-extraction drifting off its named config.  Every SPECS row is executed
-here through the same _build -> _make_run -> bench_marginal path the
-chip run uses, at tiny sizes on the virtual CPU mesh (Pallas interpret
-mode), mirroring how the reference validates its CUDA driver wiring on
-small grids before timing runs (reference advance_mu_t_driver.c usage).
+The benchmark times the card at the rows' real shapes; what can break
+silently between PRs is the plumbing — a row naming a loop configuration
+that no longer constructs, a record that stops naming its device, or a
+failed row that no longer fails the run.  Every ``SPECS`` row runs here
+through the same ``bench_row -> build -> marginal`` path at tiny sizes.
 """
 
 import json
@@ -17,173 +14,69 @@ import numpy as np
 import pytest
 
 import bench
-from wrf_tpu.io import fixtures
 from wrf_tpu.parallel.mesh import make_mesh
 
-
-def _tiny_dims(inner):
-    # time-blocked rows need enough substeps for two distinct counts
-    # that are both multiples of S; spatial dims stay interpreter-tiny
-    s = int(str(inner).rstrip("f"))
-    return 40, 30, 12, s, 2 * s
+TINY = (24, 20, 8)
 
 
-# quick tier keeps the headline + the richest coupled row; the remaining
-# rows (fast/S=1/bf16 variants, CONUS tj pins, coupled+w) are the
-# exhaustive tier — each compiles its own interpret-mode kernel (~10-20s)
-_QUICK_ROWS = {"mu_t 512x512x50 exact S=8"}
+@pytest.mark.parametrize("spec", bench.SPECS, ids=[s[0] for s in bench.SPECS])
+def test_spec_row_executes(spec):
+    mesh = make_mesh(jax.devices()[:1], (1, 1))
+    rec = bench.bench_row(spec, mesh, "xla", repeats=1, counts=(2, 4),
+                          dims=TINY)
+    assert rec["config"] == spec[0] and rec["kernel"] == "xla"
+    assert np.isfinite(rec["ms_per_substep"])
 
 
-@pytest.mark.parametrize(
-    "name,coupled,with_w,bf16,inner,tj",
-    [pytest.param(r[0], r[4], r[5], r[6], r[7], r[9],
-                  marks=() if r[0] in _QUICK_ROWS
-                  else pytest.mark.full)
-     for r in bench.SPECS],
-)
-def test_spec_row_executes(name, coupled, with_w, bf16, inner, tj):
-    mesh = make_mesh([jax.devices()[0]], (1, 1))
-    nx, ny, nz, n1, n2 = _tiny_dims(inner)
-    case = fixtures.make_case(nx, ny, nz, halo=3, seed=42)
-    fast = isinstance(inner, str) and inner.endswith("f")
-    per = bench.bench_marginal(
-        mesh, case, nx, ny, nz, n1=n1, n2=n2, repeats=1,
-        coupled=coupled, with_w=with_w, bf16=bf16,
-        inner_steps=int(str(inner).rstrip("f")), fast=fast, tj=tj,
-        min_passes=1)
-    assert np.isfinite(per)
+def test_spec_row_fused_kernel_interpreted():
+    spec = next(s for s in bench.SPECS if s[5])   # the coupled+w row
+    mesh = make_mesh(jax.devices()[:1], (1, 1))
+    rec = bench.bench_row(spec, mesh, "triton", repeats=1, counts=(2, 3),
+                          dims=TINY, interpret=True)
+    assert np.isfinite(rec["ms_per_substep"])
 
 
-def test_blocked_counts_pass_aligned():
-    # the marginal's two counts must leave ZERO single-step tail at any
-    # depth, or the difference blends blocked and single-step rates
-    from wrf_tpu.utils.timing import blocked_counts
-
-    for s in (2, 4, 8, 16, 24, 32, 48, 64, 96):
-        n1, n2 = blocked_counts(s, 50, 250)
-        assert (n1 - 1) % s == 0 and (n2 - 1) % s == 0 and n2 > n1
-    assert blocked_counts(1, 50, 250) == (50, 250)
+def test_main_refuses_without_gpu(capsys):
+    """No fallback to the CPU: the run fails and prints no record."""
+    assert bench.main([]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == "" and "no GPU" in captured.err
 
 
-def test_emit_headline_is_the_named_config(capsys):
-    records = [
-        {"config": "coupled 512x512x50", "gpts_per_s": 99, "ms_per_step": 9,
-         "vs_baseline": 9},
-        {"config": bench.HEADLINE, "gpts_per_s": 123, "ms_per_step": 1.0,
-         "vs_baseline": 4.5},
-    ]
-    bench._emit(records, copy_gbps=500.0)
-    lines = capsys.readouterr().out.strip().split("\n")
-    # two lines: the full matrix first, the short headline record LAST —
-    # a bounded tail capture must always end with one complete parseable
-    # record (VERDICT r03 weak #1: the single grown line got truncated)
-    assert len(lines) == 2
-    out = json.loads(lines[0])
-    assert out["value"] == 123  # the named headline row, not the first
-    assert out["vs_baseline"] == 4.5
-    assert out["configs"] == records
-    assert out["copy_ceiling_gb_per_s"] == 500.0
-    short = json.loads(lines[-1])
-    assert short["value"] == 123
-    assert short["vs_baseline"] == 4.5
-    assert short["copy_ceiling_gb_per_s"] == 500.0
-    assert ["coupled 512x512x50", 9, 9] in short["rows"]
-    assert len(lines[-1]) < 2048  # short enough for any tail capture
+def test_failed_row_fails_the_run(capsys):
+    mesh = make_mesh(jax.devices()[:1], (1, 1))
+    good = bench.SPECS[0]
+    bad = ("empty grid", 0, 0, 0, True, False, (2, 4))
+    device = bench.device_record("card, 1 W")
+    records, failed = bench.run_rows([good, bad], mesh, "xla", device,
+                                     repeats=1, counts=(2, 4))
+    assert failed == ["empty grid"]
+    assert "error" in records[1] and "error" not in records[0]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(x)["config"] for x in lines] == [good[0], bad[0]]
 
 
-def test_emit_missing_headline_is_flagged(capsys):
-    bench._emit([{"config": bench.HEADLINE,
-                  "error": "RuntimeError: boom"}])
-    for line in capsys.readouterr().out.strip().split("\n"):
-        out = json.loads(line)
-        assert out["value"] == 0
-        assert "headline_error" in out
+def test_records_name_the_device():
+    rec = bench.device_record("NVIDIA H100 80GB HBM3, 700.00 W")
+    assert rec == {"platform": jax.devices()[0].platform,
+                   "device_kind": jax.devices()[0].device_kind,
+                   "device_count": len(jax.devices()),
+                   "nvidia_smi": "NVIDIA H100 80GB HBM3, 700.00 W"}
 
 
-def test_emit_detail_side_file(tmp_path):
-    path = tmp_path / "BENCH_DETAIL.json"
-    recs = [{"config": bench.HEADLINE, "gpts_per_s": 7, "ms_per_step": 1,
-             "vs_baseline": 2}]
-    bench._emit(recs, detail_path=str(path))
-    full = json.loads(path.read_text())
-    assert full["configs"] == recs and full["value"] == 7
+def test_rows_default_to_each_loops_own_path():
+    """Without --kernel each row runs its loop's own choice, and the record
+    names it: at these small shapes XLA, except with w, where the loop
+    picks the fused kernel and, off a GPU, refuses it."""
+    from wrf_tpu.io import fixtures
 
-
-def test_headline_is_the_exact_blocked_row():
-    """The headline must be the bit-equal blocked loop, never a fast
-    (re-associated, C/S-by-construction) row (VERDICT r2 weak #1)."""
-    row = next(r for r in bench.SPECS if r[0] == bench.HEADLINE)
-    assert not str(row[7]).endswith("f")  # exact, not fast mode
-    assert bench.SPECS[0][0] == bench.HEADLINE  # runs first (kill-safety)
-
-
-def test_traffic_model_matches_known_accounting():
-    """Pin the enumerated-stream model to hand-derived pass counts from
-    the kernel wrappers' BlockSpecs (see traffic.py docstring)."""
-    from wrf_tpu.utils.traffic import substep_traffic
-
-    big = 514 * 50 * 514 * 4
-    # mu_t S=1, tj=12: 5 const + 2 t + 3/12 rows = 7.25 big passes
-    tr = substep_traffic(512, 512, 50, coupled=False, S=1, tj=12)
-    assert abs(tr.big_passes - 7.25) < 1e-9
-    # README's measured ~385 MB/substep figure for the lean substep
-    assert 370e6 < tr.bytes_per_substep < 400e6
-    # blocked S=8: the same 7 passes once per 8 substeps
-    tr8 = substep_traffic(512, 512, 50, coupled=False, S=8, tj=6)
-    assert abs(tr8.big_passes - (7 + 3 / 6) / 8) < 1e-9
-    # coupled trapezoid S=4 tj=12: (3 const + 6 uvt + 21/12 overlap)/4
-    trc = substep_traffic(512, 512, 50, coupled=True, S=4, tj=12)
-    assert abs(trc.big_passes - (9 + 21 / 12) / 4) < 1e-9
-    # +w adds w/pp read+write (4 passes per pass)
-    trw = substep_traffic(512, 512, 50, coupled=True, with_w=True,
-                          S=4, tj=8)
-    assert abs(trw.big_passes - (13 + 21 / 8) / 4) < 1e-9
-    # bf16 halves const streams only
-    trb = substep_traffic(512, 512, 50, coupled=False, S=1, tj=17,
-                          bf16=True)
-    assert abs(trb.big_passes - (2.5 + 2 + 3 / 17)) < 1e-9
-    assert tr.bytes_per_substep == big * 7.25 + (big / 50) * 8
-
-
-def test_bandwidth_fields_round_trip():
-    f = bench._bandwidth_fields(512, 512, 50, coupled=True, with_w=False,
-                                bf16=False, S=4, tj=12,
-                                per_substep_s=0.572e-3, copy_gbps=500.0)
-    assert f["tj"] == 12
-    assert 0 < f["gb_per_s"] < 500
-    assert f["pct_copy_ceiling"] == round(100 * f["gb_per_s"] / 500.0, 1)
-
-
-def test_stability_panel_plumbing():
-    """The per-round drift panel (VERDICT r04 task 7) constructs and
-    returns the record shape bench consumers read.  CPU/interpret can
-    only discharge the ppermute self-ring on the (1,1) mesh, so the
-    backend list is trimmed here; the chip run uses all three."""
-    mesh = make_mesh([jax.devices()[0]], (1, 1))
-    rec = bench.stability_panel(mesh, nx=16, ny=16, nz=8, n1=2, n2=6,
-                                repeats=1, backends=("ppermute",))
-    assert rec["config"] == "(stability panel 16x16x8)"
-    assert "ppermute" in rec["exchange_overhead_us"]
-    # tiny interpret-mode timings can be noise-negative; the chip run's
-    # n1/n2 spans make the real number meaningful — here only the
-    # record SHAPE is under test
-    assert np.isfinite(rec["base_ms_per_substep"])
-    assert "delta_vs_r04_us" in rec
-
-
-def test_copy_ceiling_reports_probe_error():
-    """When every probe fails, the record carries the last probe's
-    exception text instead of a bare 'no plausible reading'
-    (ADVICE r04 bench.py:265)."""
-    import bench as bench_mod
-
-    orig = bench_mod.measure_copy_gbps
-    try:
-        def boom(**kw):
-            raise RuntimeError("synthetic relay fault")
-        bench_mod.measure_copy_gbps = boom
-        gbps, src, err = bench_mod.measure_copy_ceiling((8, 4, 130))
-        assert gbps == 0.0 and src == "none"
-        assert "synthetic relay fault" in err
-    finally:
-        bench_mod.measure_copy_gbps = orig
+    mesh = make_mesh(jax.devices()[:1], (1, 1))
+    case = fixtures.make_case(*TINY, halo=3, seed=42)
+    for spec in bench.SPECS:
+        if spec[5]:
+            with pytest.raises(ValueError, match="needs a GPU"):
+                bench.build(mesh, case, 2, coupled=spec[4], with_w=True)
+            continue
+        _, kernel = bench.build(mesh, case, 2, coupled=spec[4],
+                                with_w=False)
+        assert kernel == "xla", spec[0]

@@ -77,7 +77,7 @@ def test_degenerate_shell_still_diverges(balanced_case):
 
 
 @pytest.mark.full
-@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("kernel", ["xla", "triton"])
 def test_mesh_closure_matches_golden(balanced_case, kernel):
     """10 closed-loop large steps: the mesh-decomposed integrator with
     NudgingTendencies tracks the golden path (the run_sim long-horizon
@@ -87,7 +87,8 @@ def test_mesh_closure_matches_golden(balanced_case, kernel):
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     dt = case.dts * 6
     rk3 = RK3Integrator(mesh, nx, ny, nz, case.flags, acoustic_steps=6,
-                        kernel=kernel, smdiv=0.1, snapshot="base")
+                        kernel=kernel, smdiv=0.1, snapshot="base",
+                        interpret=kernel == "triton")
     arrays = rk3.prepare(case_to_domain(case))
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0, rayleigh_uv=0.1)
 

@@ -60,17 +60,17 @@ def test_driver_dump_intermediates(tmp_path, small_case):
 
 
 def test_dump_intermediates_tier_uniform(tmp_path, small_case):
-    """Every capture-capable tier (numpy, native, xla, pallas) produces the
-    same five *_before_theta phase-A snapshots — the bisection workflow the
-    reference enables only in Fortran works across the whole tier matrix.
-    The scalar tiers must agree bit-for-bit; the device tiers within the
+    """Every capture-capable tier (numpy, native, xla) produces the same
+    five *_before_theta phase-A snapshots — the bisection workflow the
+    reference enables only in Fortran works across the tier matrix.  The
+    scalar tiers must agree bit-for-bit; the XLA tier within the
     k-reduction reassociation tolerance."""
     d = fixtures.write_case(small_case, tmp_path / "fx", steps=2)
     b = small_case.bounds
     names = ("muave_before_theta", "mu_before_theta", "mudf_before_theta",
              "muts_before_theta", "ww_before_theta")
     caps = {}
-    for tier in ("numpy", "native", "xla", "pallas"):
+    for tier in ("numpy", "native", "xla"):
         dump = tmp_path / f"dump_{tier}"
         rc = driver.main([str(d), "--tier", tier,
                           "--dump-intermediates", str(dump)])
@@ -85,7 +85,7 @@ def test_dump_intermediates_tier_uniform(tmp_path, small_case):
     for n in names:
         np.testing.assert_array_equal(
             caps["native"][n], caps["numpy"][n], err_msg=f"native {n}")
-        for tier in ("xla", "pallas"):
+        for tier in ("xla",):
             ref = caps["numpy"][n]
             scale = max(float(np.abs(ref).max()), 1.0)
             # device tiers zero the never-computed halo edge cells of the
@@ -111,20 +111,38 @@ def test_driver_coupled_native_tier(tmp_path, small_case, capsys):
 
 @pytest.mark.full
 def test_driver_all_tiers(tmp_path, small_case, capsys):
-    """The side-by-side tier matrix covers the FULL tier set — single-substep
-    tiers, both sharded tiers, the three coupled tiers and their +w variants,
-    the two bf16-const rows at their documented tolerance, plus the
-    temporally-blocked rows and their fast-mode variants — and every row
-    PASSes, with the scalar tiers bit-exact.  steps=9 so the blocked
-    tiers actually execute blocks (inner=2: 4 blocks; inner=4: 2) —
-    at steps=2 the (n_steps-1)//S gate would silently rerun every ~blk
-    row as its unblocked tier and the 18 PASSes would certify nothing
-    about temporal blocking."""
-    d = fixtures.write_case(small_case, tmp_path / "fx", steps=9)
-    rc = driver.main([str(d), "--tier", "all", "--mesh", "2x2"])
+    """The side-by-side tier matrix covers the FULL tier set — the four
+    single-substep tiers, both sharded tiers, the three coupled tiers and
+    their +w variants (the triton tiers in the Pallas interpreter) — and
+    every row PASSes, with the scalar tiers bit-exact."""
+    d = fixtures.write_case(small_case, tmp_path / "fx", steps=3)
+    rc = driver.main([str(d), "--tier", "all", "--mesh", "2x2",
+                      "--interpret"])
     out = capsys.readouterr().out
     assert rc == 0
-    assert out.count("PASS") == 18 and "FAIL" not in out and "ERROR" not in out
+    assert out.count("PASS") == len(driver.ALL) == 12
+    assert "FAIL" not in out and "ERROR" not in out
     for tier in ("numpy", "native"):
         line = next(l for l in out.splitlines() if l.strip().startswith(tier))
         assert "max_abs=0.000e+00" in line
+
+
+@pytest.mark.parametrize("tier", ["triton", "sharded-triton",
+                                  "coupled-triton"])
+def test_driver_triton_tiers_interpreted(tmp_path, small_case, tier):
+    """The fused-kernel tiers, run in the Pallas interpreter, pass the
+    same acceptance as the XLA tiers."""
+    d = fixtures.write_case(small_case, tmp_path / "fx", steps=2)
+    args = [str(d), "--tier", tier, "--interpret"]
+    if tier != "triton":
+        args += ["--mesh", "2x2"]
+    assert driver.main(args) == 0
+
+
+def test_driver_triton_tier_needs_gpu(tmp_path, small_case):
+    """The triton tier compiles the fused kernel for the GPU: without one
+    (and without --interpret) it fails instead of falling back to the
+    CPU."""
+    d = fixtures.write_case(small_case, tmp_path / "fx", steps=1)
+    with pytest.raises(Exception):
+        driver.main([str(d), "--tier", "triton"])

@@ -50,12 +50,12 @@ def test_rk3_matches_golden(small_case):
 
 @pytest.mark.full
 def test_rk3_with_w_matches_golden(small_case):
-    """RK3 over the full substep (uv + mu/t + implicit w), pallas kernel."""
+    """RK3 over the full substep (uv + mu/t + implicit w), fused kernel."""
     case = small_case
     mesh = make_mesh(jax.devices()[:4], (2, 2))
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     rk3 = RK3Integrator(mesh, nx, ny, nz, case.flags, acoustic_steps=4,
-                        kernel="pallas", with_w=True)
+                        kernel="triton", with_w=True, interpret=True)
     arrays = rk3.prepare(case_to_domain(case, with_w=True))
     dt = case.dts * 4
     out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm)
@@ -112,7 +112,7 @@ def test_multi_step_matches_host_stepping(balanced_case):
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     mesh = make_mesh(jax.devices()[:4], (2, 2))
     rk3 = RK3Integrator(mesh, nx, ny, nz, case.flags, acoustic_steps=4,
-                        smdiv=0.1, snapshot="base")
+                        kernel="xla", smdiv=0.1, snapshot="base")
     arrays = rk3.prepare(case_to_domain(case))
     dt = case.dts * 4
     fn = NudgingTendencies(arrays, dt, tau_steps=5.0)

@@ -1,89 +1,72 @@
-"""Shape fuzzing: the Pallas kernel across awkward grid geometries.
+"""Shape fuzzing: the substep across awkward grid geometries.
 
-The j-tiling (tj selection + padding), lane masking and vertical-bound
-masking must hold for any domain shape, not just the friendly benchmark
-sizes — these sweeps pin the padding/tiling edge cases against the golden
-path (interpret mode on CPU)."""
+Mask-based windows, clamped neighbour reads and ragged column tiles must
+hold for any domain shape, not just the friendly benchmark sizes — these
+sweeps pin the edge cases of the XLA path and of the fused column kernel
+(Pallas interpreter on CPU) against the golden path."""
 
-import numpy as np
+import jax.numpy as jnp
 import pytest
 
 from tests.conftest import outputs_allclose
 from wrf_tpu.grid import ConfigFlags
 from wrf_tpu.io import fixtures
-from wrf_tpu.ops.advance_mu_t_pallas import advance_mu_t_pallas
+from wrf_tpu.ops.advance_mu_t_jnp import advance_mu_t_impl, window_masks
 from wrf_tpu.ops.reference_numpy import advance_mu_t_numpy
+from wrf_tpu.ops import substep_triton as kernel_module
+from wrf_tpu.ops.substep_triton import substep_triton
 
-ARG_NAMES = (
-    "ww", "ww_1", "u", "u_1", "v", "v_1", "mu", "mut", "muu", "muv",
-    "t", "t_1", "ft", "mu_tend", "dnw", "fnm", "fnp", "rdnw",
-    "msfuy", "msfvx_inv", "msftx", "msfty", "rdx", "rdy", "dts", "epssm",
-)
+FIELDS = ("ww", "t", "t_ave", "mu", "muave", "muts", "mudf")
 
 
-def pallas_vs_golden(case, tj=None):
+@pytest.fixture(autouse=True)
+def small_tiles(monkeypatch):
+    """(2, 8) column tiles: several ragged tiles even on these small grids."""
+    monkeypatch.setattr(kernel_module, "BLOCK", (2, 8))
+
+
+def substep_vs_golden(case, impl):
     kw = case.kernel_kwargs()
-    i0, i1, j0, j1, k0, k1 = case.bounds.loop_bounds(case.flags)
-    gold = advance_mu_t_numpy(**kw)
-    out = advance_mu_t_pallas(
-        **{k: kw[k] for k in ARG_NAMES}, t_ave=kw["t_ave"],
-        window=(i0, i1, j0, j1), k0=k0, k1=k1,
-        kde=case.bounds.mem(case.bounds.kde, "k"),
-        tj=tj, interpret=True,
-    )
-    outputs_allclose(out, gold, rtol=5e-5, atol_scale=2e-6,
-                     fields=("ww", "t", "t_ave", "mu", "muave", "muts",
-                             "mudf"))
+    b = case.bounds
+    _, _, _, _, k0, k1 = b.loop_bounds(case.flags)
+    i_mask, j_mask = (jnp.asarray(m) for m in window_masks(b, case.flags))
+    args = {k: (jnp.asarray(v, jnp.float32) if hasattr(v, "ndim") else v)
+            for k, v in kw.items() if k not in ("flags", "bounds")}
+    if impl == "xla":
+        out = advance_mu_t_impl(**args, i_mask=i_mask, j_mask=j_mask,
+                                k0=k0, k1=k1, kde=b.mem(b.kde, "k"))
+    else:
+        out = substep_triton(**args, i_mask=i_mask, j_mask=j_mask, k0=k0,
+                             k1=k1, interpret=True)
+    outputs_allclose(out, advance_mu_t_numpy(**kw), rtol=5e-5,
+                     atol_scale=2e-6, fields=FIELDS)
 
 
+@pytest.mark.parametrize("impl", ["xla", "triton"])
 @pytest.mark.parametrize("shape,halo", [
     ((33, 17, 12), 1),   # odd extents, minimal halo
     ((13, 29, 7), 2),    # nx < ny, tiny K
     ((65, 9, 24), 3),    # few j rows vs large halo
     ((129, 11, 9), 2),   # wide i, shallow
 ])
-def test_pallas_odd_shapes(shape, halo):
+def test_odd_shapes(shape, halo, impl):
     nx, ny, nz = shape
     case = fixtures.make_case(nx, ny, nz, halo=halo, seed=nx + ny)
-    pallas_vs_golden(case)
+    substep_vs_golden(case, impl)
 
 
-@pytest.mark.parametrize("tj", [1, 2, 4, 8])
-def test_pallas_tile_sizes(small_case, tj):
-    """Every j-tile size (incl. tj=1 where boundary rows ARE the shifts,
-    and tj not dividing the row count so the pad path runs)."""
-    pallas_vs_golden(small_case, tj=tj)
+@pytest.mark.parametrize("block", [(1, 8), (2, 16), (4, 4), (8, 32)])
+def test_kernel_tile_sizes(small_case, block, monkeypatch):
+    """Every column tile, including tiles larger than the domain and tiles
+    that leave a ragged last row or lane block."""
+    monkeypatch.setattr(kernel_module, "BLOCK", block)
+    substep_vs_golden(small_case, "triton")
 
 
-def test_pallas_odd_shape_periodic():
+@pytest.mark.parametrize("impl", ["xla", "triton"])
+def test_odd_shape_periodic(impl):
     case = fixtures.make_case(
         21, 15, 10, halo=2, seed=9,
         flags=ConfigFlags(periodic_x=True, specified=True),
     )
-    pallas_vs_golden(case)
-
-
-def test_tile_params_respect_vmem_budget():
-    """Regression for the coupled+w scoped-vmem OOM: the any-integer tj
-    search must keep the MEASURED per-tile footprint under the raised
-    limit.  The with_w stream count is calibrated off a compile-reported
-    allocation (67.58 MiB at tj=10/I=516/K=50 under a 56-stream model),
-    so the modeled footprint of the returned tile, at the measured
-    streams, must fit the limit it will be compiled under."""
-    from wrf_tpu.ops.advance_mu_t_pallas import (
-        SHARDED_VMEM_LIMIT, sharded_tile_params)
-
-    for ni_loc, streams in [(512, 44), (512, 68), (1500, 44), (1500, 68)]:
-        tj, limit = sharded_tile_params(50, ni_loc, streams=streams)
-        assert limit == SHARDED_VMEM_LIMIT  # wide-I: raised limit in use
-        footprint = tj * 4 * (ni_loc + 2) * (streams * 50 + 40)
-        assert footprint <= SHARDED_VMEM_LIMIT, (ni_loc, streams, tj)
-
-    # the validated coupled+w bench configuration: tj=8 at 512-wide
-    tj, _ = sharded_tile_params(50, 512, streams=68)
-    assert tj == 8
-
-    # narrow-I shapes (e.g. the 74-wide reference grid) must never get an
-    # explicit limit (compiler-stack fault, see _compiler_params)
-    tj, limit = sharded_tile_params(32, 74, streams=44)
-    assert limit is None and tj >= 1
+    substep_vs_golden(case, impl)

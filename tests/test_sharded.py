@@ -34,7 +34,7 @@ def sharded_vs_oracle(case, mesh_shape, steps=1, kernel="xla", **tol):
     nx, ny = case.bounds.ide, case.bounds.jde
     nz = case.bounds.kdim
     step = ShardedAdvanceMuT(mesh, nx, ny, nz, case.flags, n_steps=steps,
-                             kernel=kernel)
+                             kernel=kernel, interpret=kernel == "triton")
     dom = case_to_domain(case)
     arrays = step.prepare(dom)
     got_dom = step(arrays, case.rdx, case.rdy, case.dts, case.epssm)
@@ -55,7 +55,7 @@ def test_mesh_factorization():
     assert factor_near_square(16) == (4, 4)
 
 
-KERNELS = ["xla", "pallas"]
+KERNELS = ["xla", "triton"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -94,9 +94,9 @@ def test_sharded_reference_size(reference_size_case):
     sharded_vs_oracle(reference_size_case, (4, 2), steps=1)
 
 
-def test_sharded_single_device_pallas(small_case):
-    """mesh (1,1) — the single-chip bench path."""
-    sharded_vs_oracle(small_case, (1, 1), steps=3, kernel="pallas")
+def test_sharded_single_device_triton(small_case):
+    """mesh (1,1) — the one-card bench path."""
+    sharded_vs_oracle(small_case, (1, 1), steps=3, kernel="triton")
 
 
 def test_distributed_helpers(small_case):
@@ -113,7 +113,8 @@ def test_distributed_helpers(small_case):
 
     case = small_case
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
-    step = ShardedAdvanceMuT(mesh, nx, ny, nz, case.flags, n_steps=2)
+    step = ShardedAdvanceMuT(mesh, nx, ny, nz, case.flags, n_steps=2,
+                             kernel="xla")
     dom = case_to_domain(case)
     ref = step.prepare(dom)
 
@@ -125,155 +126,6 @@ def test_distributed_helpers(small_case):
                                       np.asarray(ref[name]), err_msg=name)
     out = step(built, case.rdx, case.rdy, case.dts, case.epssm)
     assert np.isfinite(np.asarray(out["t"])).all()
-
-
-def test_remote_dma_halo_matches_ppermute(small_case):
-    """The Pallas remote-DMA halo exchange (SURVEY §7's chip-to-chip path)
-    produces exactly what the production ppermute refresh produces, on the
-    virtual 8-device mesh."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-    from wrf_tpu.parallel import halo
-
-    # single named axis: pallas LOGICAL device ids address one mesh axis
-    mesh = jax.make_mesh((8,), ("j",), devices=jax.devices()[:8])
-    rng = np.random.default_rng(5)
-    x = rng.standard_normal((8 * 6, 4, 16)).astype(np.float32)
-
-    def run(backend):
-        def local(blk):
-            blkp = halo.pad_axis(blk, 0)  # halo rows, then refresh them
-            if backend == "ppermute":
-                return halo.refresh_axis(blkp, 0, "j")
-            return halo.remote_refresh_axis(blkp, "j", interpret=True)
-        f = jax.shard_map(local, mesh=mesh,
-                          in_specs=P("j", None, None),
-                          out_specs=P("j", None, None), check_vma=False)
-        return np.asarray(jax.jit(f)(jnp.asarray(x)))
-
-    np.testing.assert_array_equal(run("rdma"), run("ppermute"))
-
-
-def test_remote_dma_halo_inside_scan(small_case):
-    """The RDMA exchange composed the way the production loop uses it —
-    inside a ``lax.scan`` carry under ``shard_map`` — matches the ppermute
-    form iteration for iteration (the in-loop halo_backend="rdma" path;
-    compiled-mode equivalence runs on hardware via tools/chip_checks.py)."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-    from wrf_tpu.parallel import halo
-
-    mesh = jax.make_mesh((8,), ("j",), devices=jax.devices()[:8])
-    rng = np.random.default_rng(9)
-    x = rng.standard_normal((8 * 4, 3, 16)).astype(np.float32)
-
-    def run(backend):
-        def local(blk):
-            blkp = halo.pad_axis(blk, 0)
-
-            def body(state, _):
-                if backend == "ppermute":
-                    state = halo.refresh_axis(state, 0, "j")
-                else:
-                    state = halo.remote_refresh_axis(state, "j",
-                                                     interpret=True)
-                # interior update reading the fresh halo rows (a stencil)
-                upd = state[:-2] + state[2:]
-                state = state.at[1:-1].set(0.5 * upd)
-                return state, None
-
-            state, _ = jax.lax.scan(body, blkp, length=3)
-            return state
-        f = jax.shard_map(local, mesh=mesh, in_specs=P("j", None, None),
-                          out_specs=P("j", None, None), check_vma=False)
-        return np.asarray(jax.jit(f)(jnp.asarray(x)))
-
-    np.testing.assert_array_equal(run("rdma"), run("ppermute"))
-
-
-def test_remote_dma_multi_field_exchange(small_case):
-    """remote_refresh_multi (ONE launch for a whole field set, mixed
-    3-D/2-D, with a recv-only field) matches per-field ppermute refreshes
-    on the virtual mesh."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-    from wrf_tpu.parallel import halo
-
-    mesh = jax.make_mesh((8,), ("j",), devices=jax.devices()[:8])
-    rng = np.random.default_rng(11)
-    a3 = rng.standard_normal((8 * 4, 3, 20)).astype(np.float32)  # 3-D
-    b2 = rng.standard_normal((8 * 4, 20)).astype(np.float32)     # 2-D
-    c3 = rng.standard_normal((8 * 4, 3, 20)).astype(np.float32)  # recv-only
-
-    def run(backend):
-        def local(a, b, c):
-            a, b, c = (halo.pad_axis(x, 0) for x in (a, b, c))
-            if backend == "ppermute":
-                a = halo.refresh_axis(a, 0, "j")
-                b = halo.refresh_axis(b, 0, "j")
-                c = halo.refresh_axis(c, 0, "j")
-                # the rdma form leaves a recv-only field's LOW halo alone
-                c = c.at[0].set(0.0)
-            else:
-                a, b, c = halo.remote_refresh_multi(
-                    [a, b, c], "j", a.shape[0] - 2,
-                    recv_only=("", "", "hi"), interpret=True)
-                c = c.at[0].set(0.0)
-            return a, b, c
-        f = jax.shard_map(local, mesh=mesh,
-                          in_specs=(P("j"), P("j"), P("j")),
-                          out_specs=(P("j"), P("j"), P("j")),
-                          check_vma=False)
-        return [np.asarray(x) for x in
-                jax.jit(f)(jnp.asarray(a3), jnp.asarray(b2), jnp.asarray(c3))]
-
-    for got, want in zip(run("rdma"), run("ppermute")):
-        np.testing.assert_array_equal(got, want)
-
-
-def test_trapezoid_collective_schedule(small_case):
-    """The depth-S trapezoid's compiled collective schedule: the scan
-    body must contain exactly 3 width-S exchanges x 2 axes x 2 permutes
-    (mu/u/v on a 2-D mesh; each width-S axis refresh lowers to 2
-    collective-permutes) = 12 per BLOCK — i.e. ~2/S launches per substep
-    vs the single-step scan's 6 (SCALING.md; tools/scaling_report.py
-    measures the same on arbitrary shapes)."""
-    import re
-
-    from wrf_tpu.models.small_step import SmallStepLoop
-
-    mesh = make_mesh(jax.devices()[:4], (2, 2))
-    b = small_case.bounds
-    nx, ny, nz = b.ide, b.jde, b.kdim
-    S = 4
-    loop = SmallStepLoop(mesh, nx, ny, nz, small_case.flags,
-                         n_steps=4 * S + 1, inner_steps=S)
-    arrays = loop.prepare(case_to_domain(small_case))
-    import jax.numpy as jnp
-
-    scalars = {n: jnp.float32(getattr(small_case, n))
-               for n in ("rdx", "rdy", "dts", "epssm")}
-    hlo = loop._run.lower(arrays, scalars).compile().as_text()
-    # count only inside computation DEFINITIONS of the scan body (lines
-    # ending in "{"), robust to XLA naming the body wide.*region_N or
-    # %while_body.N; a call-site line mentioning the name must not count
-    in_body, body = 0, False
-    for line in hlo.splitlines():
-        if line.rstrip().endswith("{") and (
-                re.match(r"\s*%?wide.*region", line)
-                or re.match(r"\s*%?while_body", line)):
-            body = True
-        if line.startswith("}"):
-            body = False
-        if "collective-permute" in line and "(" in line and body:
-            in_body += 1
-    assert in_body == 12, f"expected 12 in-scan permutes/block, got {in_body}"
 
 
 @pytest.mark.full

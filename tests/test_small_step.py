@@ -50,7 +50,7 @@ def sharded_loop_vs_golden(case, mesh_shape, steps, kernel="xla", **tol):
     mesh = make_mesh(jax.devices()[: mesh_shape[0] * mesh_shape[1]], mesh_shape)
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     loop = SmallStepLoop(mesh, nx, ny, nz, case.flags, n_steps=steps,
-                         kernel=kernel)
+                         kernel=kernel, interpret=kernel == "triton")
     arrays = loop.prepare(case_to_domain(case))
     got_dom = loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
 
@@ -66,7 +66,7 @@ def sharded_loop_vs_golden(case, mesh_shape, steps, kernel="xla", **tol):
     outputs_allclose(got, gold, **tol)
 
 
-@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("kernel", ["xla", "triton"])
 @pytest.mark.parametrize("mesh_shape", [
     (4, 2),
     pytest.param((2, 4), marks=pytest.mark.full),
@@ -80,18 +80,17 @@ def test_small_step_loop_matches_golden(small_case, mesh_shape, kernel):
                            rtol=5e-5, atol_scale=2e-6)
 
 
-@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("kernel", ["xla", "triton"])
 def test_small_step_loop_periodic(periodic_case, kernel):
-    """Periodic-x BCs exercise the widest masks; the pallas variant also
-    covers lean/lite carries under periodic windows."""
+    """Periodic-x BCs exercise the widest masks."""
     sharded_loop_vs_golden(periodic_case, (2, 4), steps=5, kernel=kernel,
                            rtol=5e-5, atol_scale=2e-6)
 
 
 def test_small_step_loop_open_bc(open_bc_case):
-    """Open BCs make the window reach the ring rows — the pallas path's
-    aliased pass-through edges carry real BC data there."""
-    sharded_loop_vs_golden(open_bc_case, (2, 2), steps=5, kernel="pallas",
+    """Open BCs make the window reach the ring rows — the fused kernel's
+    clamped edge reads and pass-through cells carry real BC data there."""
+    sharded_loop_vs_golden(open_bc_case, (2, 2), steps=5, kernel="triton",
                            rtol=5e-5, atol_scale=2e-6)
 
 
@@ -150,9 +149,10 @@ def test_divergence_damping_vs_golden(small_case):
     case = small_case
     mesh = make_mesh(jax.devices()[:4], (2, 2))
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
-    for kernel in ("pallas", "xla"):
+    for kernel in ("triton", "xla"):
         loop = SmallStepLoop(mesh, nx, ny, nz, case.flags, n_steps=6,
-                             kernel=kernel, smdiv=0.1)
+                             kernel=kernel, smdiv=0.1,
+                             interpret=kernel == "triton")
         arrays = loop.prepare(case_to_domain(case))
         got_dom = loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
         gold = small_step_golden(case, 6, smdiv=0.1)
@@ -191,14 +191,15 @@ def test_native_uv_damping_bitwise(small_case):
 
 @pytest.mark.full
 def test_everything_on_50_steps(small_case):
-    """Capstone: the full feature stack at once — 2-D mesh, fused winds,
-    divergence damping, the implicit w substep, 50 device-resident
+    """Capstone: the full feature stack at once — 2-D mesh, the fused
+    column kernel, divergence damping, the implicit w substep, 50 device-resident
     substeps — reassembles to the golden loop."""
     case = small_case
     mesh = make_mesh(jax.devices(), (4, 2))
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     loop = SmallStepLoop(mesh, nx, ny, nz, case.flags, n_steps=50,
-                         with_w=True, smdiv=0.1)
+                         with_w=True, smdiv=0.1, kernel="triton",
+                         interpret=True)
     arrays = loop.prepare(case_to_domain(case, with_w=True))
     got_dom = loop(arrays, case.rdx, case.rdy, case.dts, case.epssm)
     gold = small_step_golden(case, 50, with_w=True, smdiv=0.1)
@@ -217,3 +218,27 @@ def test_fixture_amplitude_scaling():
     # non-dynamic fields untouched
     assert (np.asarray(a1.fields["grid_mut"])
             == np.asarray(a2.fields["grid_mut"])).all()
+
+
+@pytest.mark.parametrize("shape,mesh_shape,with_w,want", [
+    ((74, 61, 32), (1, 1), False, "xla"),       # small shard
+    ((74, 61, 32), (1, 1), True, "triton"),     # the w solve
+    ((512, 512, 50), (1, 1), False, "triton"),  # large shard
+    ((512, 512, 50), (2, 2), False, "xla"),     # 4 shards of 258x258
+])
+def test_default_kernel_from_shape(shape, mesh_shape, with_w, want):
+    """The loop picks the fused kernel where it was faster on the card —
+    with the w solve, or on shards of at least TRITON_MIN_COLUMNS — and
+    the XLA path otherwise.  Off a GPU a kernel pick is refused with a
+    message that names the way out, never swapped for XLA."""
+    from wrf_tpu.grid import ConfigFlags
+    mesh = make_mesh(jax.devices()[: mesh_shape[0] * mesh_shape[1]],
+                     mesh_shape)
+    flags = ConfigFlags(specified=True)
+    if want == "xla":
+        assert SmallStepLoop(mesh, *shape, flags, with_w=with_w).kernel == want
+    else:
+        with pytest.raises(ValueError, match="needs a GPU.*kernel='xla'"):
+            SmallStepLoop(mesh, *shape, flags, with_w=with_w)
+        assert SmallStepLoop(mesh, *shape, flags, with_w=with_w,
+                             kernel="xla").kernel == "xla"

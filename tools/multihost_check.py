@@ -1,13 +1,12 @@
 """TRUE multi-process validation of the multi-host bring-up helpers.
 
-SCALING.md's recipe (`parallel/distributed.py`) was previously testable
-only in its single-process degenerate form; this tool runs it for real:
+The multi-host recipe (`parallel/distributed.py`) runs here for real:
 TWO OS processes, each owning 4 virtual CPU devices, joined through
 `jax.distributed.initialize` (XLA's Gloo CPU collectives), building the
 global (2, 4) mesh and assembling per-process j-slabs with
 `host_local_arrays`.  The mu_t scan loop (xla kernel, 4 substeps with
-in-scan ppermute halo refresh), the coupled small-step loop (pallas
-interpret, 3 substeps) and one closed-loop RK3 large step (base-state
+in-scan ppermute halo refresh), the coupled small-step loop (xla kernel,
+3 substeps) and one closed-loop RK3 large step (base-state
 snapshot + nudging tendencies) then run UNCHANGED across the process
 boundary.
 
@@ -24,10 +23,9 @@ Usage: python tools/multihost_check.py            # 2 procs x 4 devices
            distributed.process_local_block), not j-slabs
        (internal: ... ref OUT.npz | worker PID NPROC OUT.npz)
 
-MEASURED 2026-08-18: both loops bit-equal across 2 processes; 2026-08-19:
-and across the 4-process 2-D grid (see commit).  The same-box Gloo
-transport stands in for DCN — what it validates is the recipe and the
-SPMD program, not wire performance.
+The same-box Gloo transport stands in for the network between hosts —
+what it validates is the recipe and the SPMD program, not wire
+performance.
 """
 
 import os
@@ -105,7 +103,7 @@ def _compute(jax, mesh, *, multihost: bool):
         case = fixtures.make_case(nx, ny, nz, halo=3, seed=7)
         if coupled:
             loop = SmallStepLoop(mesh, nx, ny, nz, case.flags,
-                                 n_steps=steps)
+                                 n_steps=steps, kernel="xla")
         else:
             loop = ShardedAdvanceMuT(mesh, nx, ny, nz, case.flags,
                                      n_steps=steps, kernel="xla",
@@ -122,7 +120,7 @@ def _compute(jax, mesh, *, multihost: bool):
     case = fixtures.make_case(24, 20, 8, halo=3, seed=9, amplitude=1e-2,
                               balanced=True)
     rk3 = RK3Integrator(mesh, 24, 20, 8, case.flags, acoustic_steps=2,
-                        snapshot="base")
+                        kernel="xla", snapshot="base")
     arrays = assemble(rk3.loops[0], case_to_domain(case))
     dt = case.dts * 2
     out = rk3.step(arrays, case.rdx, case.rdy, dt, case.epssm,

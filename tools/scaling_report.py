@@ -2,9 +2,9 @@
 
 Compiles the coupled acoustic loop for several virtual mesh shapes and
 reports, per substep, the collective operations XLA actually emitted
-(collective-permutes and their byte volumes) against the SCALING.md model
-— the communication side of the weak-scaling story, checkable without
-multi-chip hardware.  Run on the CPU backend:
+(collective-permutes and their byte volumes) — the communication side of
+the weak-scaling story, checkable without several GPUs.  Run on the CPU
+backend:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tools/scaling_report.py [nx ny nz steps]
@@ -22,24 +22,21 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-import jax.numpy as jnp  # noqa: E402
-
 from wrf_tpu.io import fixtures  # noqa: E402
 from wrf_tpu.models.small_step import SmallStepLoop  # noqa: E402
 from wrf_tpu.parallel.mesh import make_mesh  # noqa: E402
 from wrf_tpu.parallel.sharded import case_to_domain  # noqa: E402
 
 
-def analyze(case, mesh_shape, steps, with_w=False, inner_steps=1):
+def analyze(case, mesh_shape, steps, with_w=False):
     n_dev = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(jax.devices()[:n_dev], mesh_shape)
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
     loop = SmallStepLoop(mesh, nx, ny, nz, case.flags, n_steps=steps,
-                         with_w=with_w, inner_steps=inner_steps)
+                         kernel="xla", with_w=with_w)
     arrays = loop.prepare(case_to_domain(case, with_w=with_w))
-    scalars = {"rdx": jnp.float32(case.rdx), "rdy": jnp.float32(case.rdy),
-               "dts": jnp.float32(case.dts), "epssm": jnp.float32(case.epssm)}
-    hlo = loop._run.lower(arrays, scalars).compile().as_text()
+    hlo = loop.lower(arrays, case.rdx, case.rdy, case.dts,
+                     case.epssm).compile().as_text()
 
     # collective-permutes inside vs outside the while (scan) body
     # body detection keys on COMPUTATION DEFINITION lines (ending in
@@ -85,23 +82,8 @@ def main():
         print(f"  mesh {shape}: {r['collectives_per_substep']} in-scan "
               f"collective-permutes/substep moving {per_shard}/shard, "
               f"{r['setup_collectives']} one-time setup collectives")
-    print("(volumes are per shard per substep and independent of mesh size —"
-          " the flat-extrapolation premise of SCALING.md)")
-
-    # the depth-S trapezoid's launch schedule: the scan body is per
-    # BLOCK, so collectives-per-substep fall ~2/S (each width-S axis
-    # refresh lowers to 2 permutes) at a volume premium — u joins the
-    # block exchange and every direction ships S rows (SCALING.md)
-    S = 4
-    print(f"depth-{S} trapezoid (inner_steps={S}):")
-    for shape in ((2, 2), (4, 2)):
-        r = analyze(case, shape, steps=4 * S + 1, inner_steps=S)
-        per_sub = r["collectives_per_substep"] / S
-        vol = (f"{r['halo_bytes_per_substep'] / S / 1024:.1f} KiB"
-               if r["halo_bytes_per_substep"] else "0")
-        print(f"  mesh {shape}: {r['collectives_per_substep']} "
-              f"collective-permutes/block = {per_sub:.1f}/substep "
-              f"moving {vol}/shard/substep")
+    print("(volumes are per shard per substep and independent of mesh "
+          "size)")
 
 
 if __name__ == "__main__":

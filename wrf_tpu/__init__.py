@@ -1,16 +1,17 @@
-"""wrf_tpu — a TPU-native WRF-style dynamical-core framework.
+"""wrf_tpu — a JAX WRF-style dynamical-core framework for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``wrf-model-cuda-sample`` (WRF V3.4.1 ``advance_mu_t`` acoustic small-step
-dynamics in Fortran/C/CUDA): the same numerics and verification architecture,
-built TPU-first — fused Pallas grid-stencil kernels, ``shard_map`` 2-D domain
-decomposition over a device mesh with halo exchange over ICI, vertical column
-scans kept chip-local, plus a native C++ scalar oracle tier and the
+dynamics in Fortran/C/CUDA): the same numerics and verification
+architecture — whole-array XLA stencils, ``shard_map`` 2-D domain
+decomposition over a device mesh with ``ppermute`` halo exchange, vertical
+column scans kept device-local, plus a native C++ scalar oracle tier and the
 reference's golden-file differential-testing methodology.
 
 Layers (mirroring the reference's architecture, SURVEY.md §1):
   L1 foundation  — ``grid``, ``config``, ``compare``, ``io``
-  L2 numerics    — ``ops`` (numpy golden path, jnp, fused Pallas kernel)
+  L2 numerics    — ``ops`` (numpy golden path, XLA path, a fused
+                   Pallas-Triton column kernel)
                    and ``native`` (C++ scalar oracle)
   L3 parallel    — ``parallel`` (mesh, halo exchange, sharded stepping)
   L4 drivers     — ``models`` (small-step loop, RK3), CLI drivers

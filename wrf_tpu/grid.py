@@ -9,8 +9,8 @@ WRF convention used throughout the reference:
   * tile    ``its:ite, jts:jte, kts:kte`` — the patch this worker owns.
 
 Arrays are stored as ``(j, k, i)`` C-order ``float32`` — ``i`` is the
-contiguous, vectorized dimension (TPU lanes), ``k`` the vertical (sublanes),
-``j`` the outermost/decomposed dimension.  This mirrors the reference layout
+contiguous, vectorized dimension (coalesced across GPU threads), ``k`` the
+vertical, ``j`` the outermost/decomposed dimension.  This mirrors the reference layout
 ``I3(i,k,j) = j*kdim*idim + k*idim + i`` (reference: advance_mu_t.c:8-9).
 
 The boundary-condition-aware loop-bound shrinking implemented by

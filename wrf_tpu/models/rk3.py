@@ -63,53 +63,18 @@ class RK3Integrator:
     """
 
     def __init__(self, mesh, nx, ny, nz, flags: ConfigFlags,
-                 acoustic_steps: int = 6, kernel: str = "pallas",
+                 acoustic_steps: int = 6, kernel: str | None = None,
                  cs2: float = DEFAULT_CS2, with_w: bool = False,
                  smdiv: float = 0.0, snapshot: str = "base",
-                 halo_backend: str = "ppermute",
-                 interpret: bool | None = None, const_dtype=None,
-                 inner_steps: int = 1, fast: bool = False,
-                 tj: int | None = None, ti: int | None = None):
+                 interpret: bool = False):
         if snapshot not in ("stage", "base"):
             raise ValueError(f"bad snapshot mode {snapshot!r}")
         self.snapshot = snapshot
         self.stages = rk3_stages(acoustic_steps)
-        # ``halo_backend`` selects the per-substep exchange for every
-        # stage loop (SmallStepLoop docstring): "ppermute" collectives,
-        # "rdma" exchange-then-compute remote DMA, or "rdma_overlap" —
-        # the exchange fused into the substep (or block) kernel and
-        # hidden under its interior tiles' compute.  Every backend now
-        # passes through to every stage, including the blocked
-        # (inner_steps>1) trapezoid stages — the width-S overlapped
-        # in-kernel block exchange (SmallStepLoop/coupled_multistep
-        # ``overlap``) serves them — EXCEPT the plain "rdma" backend,
-        # which has no width-S exchange kernel: those stages downgrade
-        # to the width-S ppermute block refresh, loudly.
-        def stage_backend(n_sub: int) -> str:
-            # downgrade only the stages whose blocked path actually
-            # engages (rem = n_sub-1 >= S); shorter stages run the
-            # supported per-substep rdma exchange untouched
-            if (halo_backend == "rdma" and inner_steps > 1
-                    and n_sub - 1 >= inner_steps):
-                import warnings
-                warnings.warn(
-                    "RK3 blocked stage (inner_steps="
-                    f"{inner_steps}, n_sub={n_sub}): halo_backend "
-                    "'rdma' has no width-S block exchange — this "
-                    "stage uses the width-S ppermute refresh instead "
-                    "(use 'rdma_overlap' for an in-kernel blocked "
-                    "exchange)", stacklevel=3)
-                return "ppermute"
-            return halo_backend
-
         self.loops = [
             SmallStepLoop(mesh, nx, ny, nz, flags, n_steps=n_sub,
                           kernel=kernel, cs2=cs2, with_w=with_w,
-                          smdiv=smdiv, interpret=interpret,
-                          halo_backend=stage_backend(n_sub),
-                          const_dtype=const_dtype,
-                          inner_steps=inner_steps, fast=fast,
-                          tj=tj, ti=ti)
+                          smdiv=smdiv, interpret=interpret)
             for (_, n_sub) in self.stages
         ]
         self.prepare = self.loops[0].prepare
@@ -169,8 +134,8 @@ class RK3Integrator:
         fields advanced ``n_steps``, and a float32 ``(n_steps, 2)`` array
         of per-step ``[sum(mu), sum(t[:, 0, :])]`` over the domain — the
         mass-perturbation series and a NaN-tripwire checksum.  The
-        per-step sum itself is an in-graph f32 reduction (f64 is off on
-        TPU); the caller adds the constant ``sum(mut)`` in f64, so the
+        per-step sum itself is an in-graph f32 reduction (JAX runs with
+        64-bit floats off); the caller adds the constant ``sum(mut)`` in f64, so the
         drift resolution is f32 quantization of the SMALL perturbation
         sum (~1e-13 of total mass at bench scale), not of the total —
         but the printed perturbation digits can differ from the

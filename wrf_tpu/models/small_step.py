@@ -6,20 +6,15 @@ substep the winds respond to the mass field (advance_uv) and the mass/theta
 fields respond to the winds (advance_mu_t), iterated device-resident under
 ``lax.scan`` across the mesh.
 
-On the Pallas path the whole coupled substep is ONE fused kernel
-(``advance_mu_t_pallas(fuse_uv=True)``): the wind update runs in-register
-from the mu field's 1-cell halo, so the separate XLA wind pass (2 reads +
-2 writes of the 3-D winds) disappears and u/v are streamed exactly once
-per substep.  The per-substep communication shrinks accordingly: only mu
-(read at i-1/j-1/j+1 by the fused wind update) and v (read at j+1 by the
-mass flux from the NEXT tile's first row, which the kernel cannot
-recompute locally) are ppermute-refreshed each iteration; the updated u
-halo lanes are recomputed in-register on whichever shard needs them, since
-the wind formula only consumes the (fresh) mu halo.  t_ave is produced
-only on the final substep (it is pointwise t_old, never read back).
-
-The XLA path keeps the two-pass structure (advance_uv_jnp + mu_t) with
-full u/v halo refreshes — it is the cross-check for the fused kernel.
+Each substep refreshes the 1-cell halos of mu (and mudf under divergence
+damping), runs the wind update, refreshes the u/v halos, then runs the
+mu/t substep and, with ``with_w``, the vertically-implicit w/pp substep.
+``kernel="triton"`` runs them as one fused column kernel
+(ops/substep_triton.py, GPU only); ``kernel="xla"`` runs the plain XLA
+ops for both, on any backend.  By default the loop takes the kernel with
+the w solve or on large shards, where it was faster on the card, and XLA
+otherwise (:func:`default_kernel`).  The wind update is an elementwise
+stencil that XLA fuses on either path.
 
 Verification follows the house pattern: a numpy golden loop
 (``small_step_golden``) runs the same substep sequence FP-order-exact on a
@@ -28,35 +23,52 @@ single tile; the mesh-decomposed loop must reassemble to it.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..grid import ConfigFlags
-from ..ops.advance_mu_t_jnp import advance_mu_t_impl
-from ..ops.advance_mu_t_msteps import (
-    LANE_RING, coupled_lean_kwargs, coupled_multistep_pallas,
-    coupled_two_step_pallas, lane_ring_pad, lane_ring_strip,
-)
-from ..ops.advance_mu_t_pallas import (
-    advance_mu_t_pallas, lean_kwargs, sharded_tile_params,
-)
 from ..ops.advance_uv import DEFAULT_CS2, advance_uv_jnp, advance_uv_numpy
 from ..ops.advance_w import DEFAULT_CW, DEFAULT_GW, advance_w_jnp, advance_w_numpy
 from ..ops.reference_numpy import advance_mu_t_numpy
 from ..parallel import halo
 from ..parallel.mesh import replicated, sharding2, sharding3
 from ..parallel.sharded import (
-    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, SCALARS, domain_window, pad_to_mesh,
+    FIELDS_1D, FIELDS_2D, FIELDS_3D, RING, SCALARS, domain_window,
+    local_masks, pad_to_mesh, substep_fn,
 )
 
 F = jnp.float32
 
 #: fields carried (and updated) across substeps
 STATE_KEYS = ("ww", "mu", "t", "t_ave", "u", "v")
+
+#: columns per shard from which the fused kernel beats the XLA path on the
+#: loop without the w solve.  ``tools/kernel_crossover.py`` on an H100
+#: 80GB HBM3 at 400 W, median of 5 alternating turns, XLA vs kernel ms
+#: per substep: 320x320x50 0.319 vs 0.338, 384x384x50 0.453 vs 0.407.
+#: The kernel's serial k walk is latency-bound on smaller shards.  With
+#: the w solve the kernel won at every size measured, from 74x61x32 up.
+TRITON_MIN_COLUMNS = 384 * 384
+
+
+def default_kernel(mesh: Mesh, nx: int, ny: int, with_w: bool) -> str:
+    """The substep path of a loop that names none: the fused kernel with
+    the w solve or on shards of at least ``TRITON_MIN_COLUMNS`` columns,
+    XLA otherwise.  The kernel runs on a GPU only, so where it is the pick
+    on another platform the choice is refused, not changed."""
+    columns = (-(-(ny + 2 * RING) // mesh.shape["j"])
+               * -(-(nx + 2 * RING) // mesh.shape.get("i", 1)))
+    if not with_w and columns < TRITON_MIN_COLUMNS:
+        return "xla"
+    platform = mesh.devices.flat[0].platform
+    if platform != "gpu":
+        raise ValueError(
+            f"the default substep path here is the fused kernel, which needs "
+            f"a GPU (mesh platform {platform!r}); pass kernel='xla' "
+            f"(run_sim: --kernel xla)")
+    return "triton"
 
 
 def small_step_golden(case, steps: int, cs2: float = DEFAULT_CS2,
@@ -110,117 +122,30 @@ class SmallStepLoop:
 
     Same array contract as :class:`~wrf_tpu.parallel.sharded.ShardedAdvanceMuT`
     (ring-shaped global arrays, ``prepare`` -> ``__call__``); additionally
-    returns the final winds.
+    returns the final winds (and w/pp with ``with_w``).  ``kernel`` is
+    "triton" (the fused column kernel, GPU only) or "xla"; the default
+    picks by :func:`default_kernel` from ``with_w`` and the columns per
+    shard.  ``interpret`` runs the Triton kernel in the Pallas interpreter
+    (tests on the CPU).
     """
 
     def __init__(self, mesh: Mesh, nx: int, ny: int, nz: int,
                  flags: ConfigFlags, n_steps: int = 1,
-                 kernel: str = "pallas", cs2: float = DEFAULT_CS2,
+                 kernel: str | None = None, cs2: float = DEFAULT_CS2,
                  with_w: bool = False,
                  cw: float = DEFAULT_CW, gw: float = DEFAULT_GW,
-                 smdiv: float = 0.0, halo_backend: str = "ppermute",
-                 force_exchange: bool = False,
-                 tj: int | None = None, ti: int | None = None,
-                 interpret: bool | None = None,
-                 const_dtype=None, inner_steps: int = 1,
-                 fast: bool = False):
-        """``halo_backend``:
-
-        * "ppermute" (XLA collectives; default);
-        * "rdma" — Pallas ``make_async_remote_copy`` ring exchange along
-          the j mesh axis as its own kernel BEFORE the substep kernel
-          (exchange-then-compute), MESH-coordinate addressed — i-axis
-          refreshes stay on ppermute, see halo.remote_refresh_axis's
-          layout note;
-        * "rdma_overlap" — the exchange FUSED INTO the substep kernel
-          and overlapped with its interior compute: the RDMAs start at
-          the first grid step, the grid is permuted so the two
-          halo-reading edge tiles run last, and only they wait
-          (advance_mu_t_pallas ``overlap``).  One kernel launch per
-          substep total, with the transfer hidden under the interior
-          tiles' compute — SURVEY.md §7's "overlapped with interior
-          compute" design point.  Same bit-exact values as the other
-          backends (identical exchanged rows; only the schedule
-          differs).  Requires the fused pallas kernel.  Divergence
-          damping is supported (mudf rides the staged exchange), and
-          ``inner_steps>1`` is supported via the width-S trapezoid
-          block exchange fused into the block kernel
-          (coupled_multistep_pallas ``overlap``); the only remaining
-          exclusion is lane tiling (``ti``), which is not composed
-          with the in-kernel exchange yet.
-
-        Both rdma backends require compiled execution (the Pallas
-        interpreter cannot discharge remote DMAs on multi-axis meshes).
-
-        ``force_exchange`` runs the per-substep halo refreshes even on
-        1-shard axes (a ring of one: self-exchange).  This corrupts the
-        boundary-ring rows, so it is NOT for production — it exists so a
-        single chip can execute the exact in-scan exchange code path of a
-        multi-chip run and the backends can be diffed on hardware."""
-        if halo_backend not in ("ppermute", "rdma", "rdma_overlap"):
-            raise ValueError(f"bad halo_backend {halo_backend!r}")
-        if halo_backend == "rdma_overlap":
-            if kernel != "pallas":
-                raise ValueError("rdma_overlap requires the fused pallas "
-                                 "kernel (the exchange lives inside it)")
-        if const_dtype is not None and kernel != "pallas":
-            raise ValueError("const_dtype requires the pallas kernel")
-        if not isinstance(inner_steps, int) or inner_steps < 1:
-            raise ValueError("inner_steps must be a positive integer")
-        if fast and inner_steps == 1:
-            raise ValueError("fast re-associates the BLOCKED pass: it "
-                             "requires inner_steps > 1 (alone it would "
-                             "silently no-op)")
-        if ti is not None:
-            # 2-D (j, i)-tiled blocked kernel (lane windows + 128-lane
-            # ring layout, ops/advance_mu_t_msteps.py LANE_RING): the
-            # depth-S trapezoid only, i-axis unsharded (the lane-ring
-            # layout and the i halo exchange are not composed yet)
-            if inner_steps < 2:
-                raise ValueError("ti (lane tiling) requires "
-                                 "inner_steps >= 2")
-            if mesh.shape.get("i", 1) > 1 or force_exchange:
-                raise ValueError("ti requires an unsharded i axis")
-        if inner_steps > 1:
-            # the depth-S trapezoid needs +-S j rows of mu per block,
-            # exchanged as a width-S ring (S=2 keeps the hand-unrolled
-            # pair kernel; S>2 runs coupled_multistep_pallas)
-            if kernel != "pallas":
-                raise ValueError("inner_steps requires the pallas kernel")
-            if smdiv:
-                raise ValueError("inner_steps>1 does not support smdiv "
-                                 "yet (mudf would need its own extended "
-                                 "rows)")
-            if (halo_backend == "rdma"
-                    and n_steps - 1 >= inner_steps
-                    and (mesh.shape["j"] > 1 or force_exchange)):
-                # only rejected when the blocked path actually engages
-                # (rem >= S); with fewer substeps every exchange runs
-                # on the supported per-substep rdma kernel
-                raise ValueError("blocked substeps (n_steps-1 >= "
-                                 "inner_steps) use the width-S "
-                                 "ppermute exchange or the overlapped "
-                                 "in-kernel exchange (rdma_overlap); "
-                                 "the plain rdma backend covers the "
-                                 "single-step loop")
-            if halo_backend == "rdma_overlap" and (
-                    mesh.shape["j"] > 1 or force_exchange):
-                # the deep trapezoid fuses the width-S mu/u/v ring
-                # exchange into the block kernel (edge tiles run last);
-                # the S=2 pair kernel has no overlap support, so the
-                # generalized kernel serves S=2 too
-                if ti is not None:
-                    raise ValueError("rdma_overlap and lane tiling (ti) "
-                                     "are not composed yet")
-        self._force_exchange = force_exchange
+                 smdiv: float = 0.0, interpret: bool = False):
         self.mesh = mesh
         self.domain = (nx, ny, nz)
         self.with_w = with_w
+        j_shards = mesh.shape["j"]
+        i_shards = mesh.shape.get("i", 1)
+        self.kernel = kernel = kernel or default_kernel(mesh, nx, ny, with_w)
         window = domain_window(nx, ny, nz, flags)
         self.window = window
         k0, k1 = window[4], window[5]
-        if interpret is None:
-            interpret = jax.devices()[0].platform == "cpu"
+        step_impl = substep_fn(kernel, interpret)
+        fused_w = with_w and kernel == "triton"
 
         has_i_axis = "i" in mesh.shape
         ip = "i" if has_i_axis else None
@@ -241,13 +166,11 @@ class SmallStepLoop:
                          ("ww", "t", "t_ave", "u", "v", "w", "pp")
                          else P("j", ip))
                      for n in out_names}
-        j_shards = mesh.shape["j"]
-        i_shards = mesh.shape.get("i", 1)
 
         def local_loop(arrs, scalars):
             nj_loc, K, ni_loc = arrs["ww"].shape
-            j_sh = j_shards > 1 or force_exchange
-            i_sh = i_shards > 1 or force_exchange
+            j_sh = j_shards > 1
+            i_sh = i_shards > 1
 
             padded = {}
             for name in F3:
@@ -257,123 +180,29 @@ class SmallStepLoop:
             for name in F1:
                 padded[name] = arrs[name]
 
-            # Stream counts are MEASURED off compile-reported scoped-vmem
-            # sizes, not modeled: with_w 67.58 MiB @ tj=10 => ~68 row
-            # streams (tj=8, 1.54 ms); plain coupled 44.  bf16 constants
-            # keep the f32 accounting here: this loop's binding call is
-            # the FINAL (non-lean) substep, whose footprint shrinks far
-            # less than the scan substep's (measured: tj=16 OOMs at
-            # 69.29 MiB where a scan-substep model predicted 57.5), and
-            # Mosaic's accounting is non-linear in tj across the two
-            # calls — tj=12 is the measured-good bf16 configuration
-            # (0.931 ms/substep).
-            if inner_steps > 1:
-                # blocked trapezoid kernel: both steps' extended-row live
-                # values are resident at once (calibrated on chip from
-                # compile-reported scoped sizes, like the others)
-                blk_streams = 60 if const_dtype is not None else 72
-                if with_w:
-                    blk_streams += 28   # w/pp streams + Thomas scratches
-                # lane-tiled: VMEM scales with the lane BLOCK (ti + the
-                # 128-lane halo each side), not the domain width
-                budget_lanes = (ni_loc if ti is None
-                                else ti + 2 * LANE_RING - 2)
-                tj_loc, vmem_limit = sharded_tile_params(
-                    K, budget_lanes, tj, streams=blk_streams,
-                    fixed_rows=6 * max(0, inner_steps - 2))
-            else:
-                tj_loc, vmem_limit = sharded_tile_params(
-                    K, ni_loc, tj, streams=68 if with_w else 44)
-            if halo_backend == "rdma_overlap":
-                # the in-kernel exchange substitutes halo rows at the
-                # edge tiles' ROW VIEWS, which is exact only with zero
-                # alignment padding: largest divisor of nj_loc <= tj
-                while nj_loc % tj_loc:
-                    tj_loc -= 1
-            padj = (-nj_loc) % tj_loc if kernel == "pallas" else 0
-            if padj:
-                for name in F3:
-                    padded[name] = jnp.pad(padded[name], ((0, padj), (0, 0), (0, 0)))
-                for name in FIELDS_2D:
-                    padded[name] = jnp.pad(padded[name], ((0, padj), (0, 0)))
-            Jl = nj_loc + 2 + padj
-
             j_off = jax.lax.axis_index("j") * nj_loc - 1
             i_off = ((jax.lax.axis_index("i") * ni_loc - 1)
                      if has_i_axis else -1)
             i0, i1, j0, j1 = window[:4]
             offs = (j_off, i_off)
+            i_mask, j_mask = local_masks(window, j_off, i_off,
+                                         nj_loc + 2, ni_loc + 2)
 
-            if kernel == "pallas":
-                lean_kw = lean_kwargs(padded, scalars["rdx"],
-                                      scalars["rdy"], scalars["dts"], k0, k1)
-                padded_f32 = dict(padded)   # pre-cast view (blocked path)
-                if const_dtype is not None:
-                    # reduced-precision constant streams (see the kernel's
-                    # _ingest3): cast ONCE per invocation, outside the
-                    # scan.  u/v are carried state here (fuse_uv) and stay
-                    # f32; only the never-written 3-D bases narrow.
-                    for n in ("u_1", "v_1", "ww_1", "ft", "t_1"):
-                        padded[n] = padded[n].astype(const_dtype)
-                    lean_kw = {k: (v.astype(const_dtype) if v.ndim == 3
-                                   else v)
-                               for k, v in lean_kw.items()}
-
-                def fused_step(ins, with_tave, ww_mode, overlap_cfg=None):
-                    lean = ww_mode == "lite"
-                    return advance_mu_t_pallas(
-                        **ins, **(lean_kw if lean else {}), **scalars,
-                        window=(i0, i1, j0, j1), offsets=offs,
-                        k0=k0, k1=k1, kde=nz - 1, tj=tj_loc,
-                        fuse_uv=True, cs2=cs2, with_tave=with_tave,
-                        fuse_w=with_w, cw=cw, gw=gw, smdiv=smdiv,
-                        ww_mode=ww_mode, lean=lean,
-                        vmem_limit=vmem_limit,
-                        overlap=overlap_cfg,
-                        interpret=interpret,
-                    )
-            else:
-                i_idx = i_off + jnp.arange(ni_loc + 2)
-                j_idx = j_off + jnp.arange(Jl)
-                i_mask = (i_idx >= i0) & (i_idx <= i1)
-                j_mask = (j_idx >= j0) & (j_idx <= j1)
-
-                def mu_t_step(ins):
-                    return advance_mu_t_impl(
-                        **ins, **scalars, i_mask=i_mask, j_mask=j_mask,
-                        k0=k0, k1=k1, kde=nz - 1,
-                    )
-
-            def refresh_j(x, cid):
-                """j-axis halo refresh on the selected backend (axis 0 for
-                both 2-D and 3-D local blocks)."""
-                if halo_backend == "rdma":
-                    return halo.remote_refresh_axis(
-                        x, "j", n_interior=nj_loc, collective_id=cid,
-                        interpret=interpret)
-                return halo.refresh_axis(x, 0, "j", n_interior=nj_loc)
-
-            def refresh3(x, cid=1):
+            def refresh3(x):
                 if j_sh:
-                    x = refresh_j(x, cid)
+                    x = halo.refresh_axis(x, 0, "j", n_interior=nj_loc)
                 if i_sh:
                     x = halo.refresh_axis(x, 2, "i", n_interior=ni_loc)
                 return x
 
-            def refresh2(x, cid=2):
+            def refresh2(x):
                 if j_sh:
-                    x = refresh_j(x, cid)
+                    x = halo.refresh_axis(x, 0, "j", n_interior=nj_loc)
                 if i_sh:
                     x = halo.refresh_axis(x, 1, "i", n_interior=ni_loc)
                 return x
 
-            # the pallas scan carries only the ww scan-seed row (ww_mode
-            # machinery in advance_mu_t_pallas): one full field read+write
-            # per substep less than carrying ww itself
-            carry_keys = (("ww_row", "mu", "t", "u", "v")
-                          if kernel == "pallas" else STATE_KEYS)
-            if kernel == "pallas":
-                padded["ww_row"] = padded["ww"][:, k0, :]
+            carry_keys = STATE_KEYS
             if with_w:
                 carry_keys = carry_keys + ("w", "pp")
             if smdiv:
@@ -382,324 +211,52 @@ class SmallStepLoop:
             const = {k: v for k, v in padded.items() if k not in carry_keys}
             state0 = {k: padded[k] for k in carry_keys}
 
-            if kernel == "pallas":
-                def substep(state, with_tave=True, final=False):
-                    # mu changed in the previous substep: refresh before
-                    # the in-kernel wind update reads its i-1/j-1/j+1
-                    # neighbors; v's halo row feeds the next tile's j+1
-                    # mass flux.  u's halo lanes self-maintain in-register
-                    # (the kernel recomputes them from the fresh mu halo).
-                    if halo_backend == "rdma_overlap" and j_sh:
-                        # the j exchange rides INSIDE the substep kernel,
-                        # overlapped with its interior tiles; only the
-                        # lane-axis (i) halos of mu (and mudf under
-                        # damping) need a ppermute first
-                        ins = {**const, **state}
-                        if i_sh:
-                            ins["mu"] = halo.refresh_axis(
-                                state["mu"], 1, "i", n_interior=ni_loc)
-                        if smdiv:
-                            mudf_p = ins.pop("mudf")
-                            if i_sh:
-                                mudf_p = halo.refresh_axis(
-                                    mudf_p, 1, "i", n_interior=ni_loc)
-                            ins["mudf_in"] = mudf_p
-                        out = fused_step(
-                            ins, with_tave, "final" if final else "lite",
-                            overlap_cfg={"axis_name": "j",
-                                         "n_interior": nj_loc,
-                                         "collective_id": 7})
-                        if final:
-                            return state, out
-                        return {k: out[k] for k in carry_keys}, out
-                    if halo_backend == "rdma" and j_sh:
-                        # ONE RDMA launch for every j-halo of the substep
-                        # (v consumes only its high halo in the fused
-                        # kernel); i-halos stay on ppermute (lane axis)
-                        flds = [state["mu"], state["v"]]
-                        ro = ("", "hi")
-                        if smdiv:
-                            flds.append(state["mudf"])
-                            ro = ro + ("",)
-                        flds = halo.remote_refresh_multi(
-                            flds, "j", nj_loc, recv_only=ro,
-                            collective_id=2, interpret=interpret)
-                        mu_p, v = flds[0], flds[1]
-                        mudf_p = flds[2] if smdiv else None
-                        if i_sh:
-                            mu_p = halo.refresh_axis(mu_p, 1, "i",
-                                                     n_interior=ni_loc)
-                            if smdiv:
-                                mudf_p = halo.refresh_axis(
-                                    mudf_p, 1, "i", n_interior=ni_loc)
-                        ins = {**const, **state, "mu": mu_p, "v": v}
-                        if smdiv:
-                            ins.pop("mudf")
-                            ins["mudf_in"] = mudf_p
-                        out = fused_step(ins, with_tave,
-                                         "final" if final else "lite")
-                        if final:
-                            return state, out
-                        return {k: out[k] for k in carry_keys}, out
-                    mu_p = refresh2(state["mu"], cid=2)
-                    v = state["v"]
-                    if j_sh:
-                        v = refresh_j(v, cid=3)
-                    ins = {**const, **state, "mu": mu_p, "v": v}
-                    if smdiv:
-                        # mudf is read at the same neighbor points as mu
-                        ins["mudf_in"] = refresh2(ins.pop("mudf"), cid=4)
-                    out = fused_step(ins, with_tave,
-                                     "final" if final else "lite")
-                    if final:
-                        return state, out
-                    return {k: out[k] for k in carry_keys}, out
-            else:
-                def substep(state, with_tave=True, final=False):
-                    del with_tave, final
-                    if halo_backend == "rdma" and j_sh:
-                        flds = [state["mu"]] + ([state["mudf"]] if smdiv
-                                                else [])
-                        flds = halo.remote_refresh_multi(
-                            flds, "j", nj_loc, collective_id=2,
-                            interpret=interpret)
-                        mu_p = flds[0]
-                        mudf_p = flds[1] if smdiv else None
-                        if i_sh:
-                            mu_p = halo.refresh_axis(mu_p, 1, "i",
-                                                     n_interior=ni_loc)
-                            if smdiv:
-                                mudf_p = halo.refresh_axis(
-                                    mudf_p, 1, "i", n_interior=ni_loc)
-                    else:
-                        mu_p = refresh2(state["mu"])
-                        mudf_p = (refresh2(state["mudf"]) if smdiv else None)
-                    u, v = advance_uv_jnp(
-                        u=state["u"], v=state["v"], mu=mu_p,
-                        muu=const["muu"], muv=const["muv"],
-                        msfuy=const["msfuy"], msfvx_inv=const["msfvx_inv"],
-                        rdx=scalars["rdx"], rdy=scalars["rdy"],
-                        dts=scalars["dts"],
-                        window=(i0, i1, j0, j1), offsets=offs, cs2=cs2,
-                        mudf=mudf_p, smdiv=smdiv,
+            def substep(state):
+                mu_p = refresh2(state["mu"])
+                mudf_p = refresh2(state["mudf"]) if smdiv else None
+                u, v = advance_uv_jnp(
+                    u=state["u"], v=state["v"], mu=mu_p,
+                    muu=const["muu"], muv=const["muv"],
+                    msfuy=const["msfuy"], msfvx_inv=const["msfvx_inv"],
+                    rdx=scalars["rdx"], rdy=scalars["rdy"],
+                    dts=scalars["dts"],
+                    window=(i0, i1, j0, j1), offsets=offs, cs2=cs2,
+                    mudf=mudf_p, smdiv=smdiv,
+                )
+                # the winds changed: advance_mu_t reads u(i+1)/v(j+1)
+                u, v = refresh3(u), refresh3(v)
+                ins = {k: v_ for k, v_ in {**const, **state}.items()
+                       if k not in ("w", "pp", "rdn", "mudf")}
+                ins = {**ins, "mu": mu_p, "u": u, "v": v}
+                w_kw = ({"w": state["w"], "pp": state["pp"],
+                         "rdn": const["rdn"], "cw": cw, "gw": gw}
+                        if fused_w else {})
+                out = step_impl(**ins, **w_kw, **scalars, i_mask=i_mask,
+                                j_mask=j_mask, k0=k0, k1=k1, kde=nz - 1)
+                out = {**out, "u": u, "v": v}
+                if with_w and not fused_w:
+                    # column-local: no halo refresh needed
+                    w_n, pp_n = advance_w_jnp(
+                        w=state["w"], pp=state["pp"], t=out["t"],
+                        rdn=const["rdn"], rdnw=const["rdnw"],
+                        dts=scalars["dts"], epssm=scalars["epssm"],
+                        window=(i0, i1, j0, j1), offsets=offs,
+                        k0=k0, k1=k1, cw=cw, gw=gw,
                     )
-                    # the winds changed: advance_mu_t reads u(i+1)/v(j+1)
-                    if halo_backend == "rdma" and j_sh:
-                        u, v = halo.remote_refresh_multi(
-                            [u, v], "j", nj_loc, collective_id=3,
-                            interpret=interpret)
-                        if i_sh:
-                            u = halo.refresh_axis(u, 2, "i",
-                                                  n_interior=ni_loc)
-                            v = halo.refresh_axis(v, 2, "i",
-                                                  n_interior=ni_loc)
-                    else:
-                        u, v = refresh3(u), refresh3(v)
-                    ins = {k: v_ for k, v_ in {**const, **state}.items()
-                           if k not in ("w", "pp", "rdn", "mudf")}
-                    out = mu_t_step({**ins, "mu": mu_p, "u": u, "v": v})
-                    out = {**out, "u": u, "v": v}
-                    if with_w:
-                        # column-local: no halo refresh needed
-                        w_n, pp_n = advance_w_jnp(
-                            w=state["w"], pp=state["pp"], t=out["t"],
-                            rdn=const["rdn"], rdnw=const["rdnw"],
-                            dts=scalars["dts"], epssm=scalars["epssm"],
-                            window=(i0, i1, j0, j1), offsets=offs,
-                            k0=k0, k1=k1, cw=cw, gw=gw,
-                        )
-                        out = {**out, "w": w_n, "pp": pp_n}
-                    return {k: out[k] for k in carry_keys}, out
+                    out = {**out, "w": w_n, "pp": pp_n}
+                return {k: out[k] for k in carry_keys}, out
 
             state = state0
-            rem = n_steps - 1
-            if inner_steps > 1 and rem >= inner_steps:
-                # ---- temporally-blocked substeps (trapezoid kernel) ---
-                # ring-S layout (halo.widen_ring_to: [loS..lo1, int,
-                # hi1..hiS, alignment]) built ONCE outside the scan; on
-                # sharded axes the outer cells hold neighbor data and
-                # the block-carried mu/u/v halos are refreshed per block
-                # with a width-S exchange — ~2/S the per-substep
-                # path's collective launches at a volume premium (u
-                # joins the exchange; HLO-measured in
-                # tools/scaling_report.py, negligible at production
-                # tiles per SCALING.md)
-                S = inner_steps
-                n_blocks = rem // S
-                jn = "j" if j_sh else None
-
-                def w3(x):
-                    x = halo.widen_ring_to(x, 0, jn, nj_loc, S)
-                    if i_sh:   # unsharded i keeps the ring-1 lane layout
-                        x = halo.widen_ring_to(x, 2, "i", ni_loc, S)
-                    return x
-
-                def w2(x):
-                    x = halo.widen_ring_to(x, 0, jn, nj_loc, S)
-                    if i_sh:
-                        x = halo.widen_ring_to(x, 1, "i", ni_loc, S)
-                    return x
-
-                # constants are computed ON the ring-2 widened f32 inputs
-                # (not widened after computing): dvdxi_const's j/i rolls
-                # would otherwise wrap into garbage at the hi1 halo cell,
-                # which the trapezoid READS on interior shards.  bf16
-                # mode then narrows the results, matching the sequential
-                # path's compute-f32-then-quantize order.
-                wide = {n: (w3(padded_f32[n]) if padded_f32[n].ndim == 3
-                            else w2(padded_f32[n]))
-                        for n in ("ww_1", "u_1", "v_1", "ft", "t_1",
-                                  "muu", "muv", "msfuy", "msfvx_inv",
-                                  "msftx", "msfty")}
-                wide.update({n: padded[n]
-                             for n in ("fnm", "fnp", "rdnw", "dnw")})
-                lean2 = lean_kwargs(wide, scalars["rdx"],
-                                    scalars["rdy"], scalars["dts"],
-                                    k0, k1)
-                cl2 = coupled_lean_kwargs(wide, scalars["rdx"],
-                                          scalars["rdy"], scalars["dts"])
-                c2const = {
-                    "t_1": wide["t_1"],
-                    "tconst": lean2["tconst"],
-                    "dvdxi_const": lean2["dvdxi_const"],
-                    "ww1_k0": lean2["ww1_k0"],
-                    "mu_tend": w2(padded["mu_tend"]),
-                    "msftx": wide["msftx"],
-                    "msfty": wide["msfty"],
-                    "cu": cl2["cu"], "cv": cl2["cv"],
-                    "msft2": cl2["msft2"],
-                }
-                if const_dtype is not None:
-                    for n in ("t_1", "tconst", "dvdxi_const"):
-                        c2const[n] = c2const[n].astype(const_dtype)
-                state2 = {k: (w3(v) if v.ndim == 3 else w2(v))
-                          for k, v in state.items()}
-                offs2 = (j_off, i_off - (S - 1 if i_sh else 0))
-
-                w_kw = ({"fuse_w": True, "rdn": padded["rdn"],
-                         "cw": cw, "gw": gw, "epssm": scalars["epssm"]}
-                        if with_w else {})
-
-                def block_refresh(st):
-                    """mu/u/v changed last block: refresh their ring-S
-                    halos (mu is read S cells deep by the trapezoid;
-                    u/v S-1 — the width-S exchange covers all).  Under
-                    the overlapped backend the j leg rides INSIDE the
-                    block kernel; only the i-axis halos exchange here."""
-                    st = dict(st)
-                    for n2, ax_j, ax_i in (("mu", 0, 1), ("u", 0, 2),
-                                           ("v", 0, 2)):
-                        x = st[n2]
-                        if j_sh and not blk_overlap:
-                            x = halo.refresh_axis_w(x, ax_j, "j",
-                                                    nj_loc, S)
-                        if i_sh:
-                            x = halo.refresh_axis_w(x, ax_i, "i",
-                                                    ni_loc, S)
-                        st[n2] = x
-                    return st
-
-                # the generalized depth-S kernel is the DEFAULT at
-                # every depth since r05: its aliased in-place carry
-                # (coupled_multistep_pallas carry_alias) beats the
-                # hand-unrolled S=2 pair kernel by ~1.7x on chip
-                # (0.56 vs 0.94 ms/substep at 512^2 tj=12,
-                # 2026-08-21) — the pair kernel's r03 calibration
-                # predates the carry-copy fix and it still pays the
-                # fresh-buffer patch.  WRF_TPU_COUPLED_GENERAL=0
-                # restores the pair kernel for A/B.
-                blk_overlap = (halo_backend == "rdma_overlap"
-                               and (j_sh or force_exchange))
-                use_general = (S > 2 or ti is not None or blk_overlap
-                               or os.environ.get(
-                                   "WRF_TPU_COUPLED_GENERAL", "1")
-                               != "0")
-                if blk_overlap:
-                    # in-kernel exchange substitutes ring rows at the
-                    # two edge tiles only: zero row padding (tj divides
-                    # nj_loc) and tj >= S — pick the largest divisor of
-                    # nj_loc in [S, tj_budget] (fall back to the
-                    # smallest divisor >= S)
-                    tj_loc = next(
-                        (t for t in range(min(tj_loc, nj_loc), S - 1, -1)
-                         if nj_loc % t == 0),
-                        next((t for t in range(S, nj_loc + 1)
-                              if nj_loc % t == 0), None))
-                    if tj_loc is None:
-                        raise ValueError(
-                            f"no tile in [S, {nj_loc}] divides nj_loc="
-                            f"{nj_loc} (S={S})")
-
-                if ti is not None:
-                    # embed EVERYTHING the blocked kernel streams into
-                    # the 128-lane-ring layout ONCE, outside the scan
-                    I2w = state2["t"].shape[-1]
-                    state2 = {k2: lane_ring_pad(v2, ti)
-                              for k2, v2 in state2.items()}
-                    c2const = {k2: lane_ring_pad(v2, ti)
-                               for k2, v2 in c2const.items()}
-
-                def block_body(st, _):
-                    if (j_sh and not blk_overlap) or i_sh:
-                        st = block_refresh(st)
-                    kern = (coupled_multistep_pallas if use_general
-                            else coupled_two_step_pallas)
-                    ov_kw = ({"overlap": {"axis_name": "j",
-                                          "n_interior": nj_loc,
-                                          "collective_id": 8}}
-                             if blk_overlap else {})
-                    out2 = kern(**ov_kw,
-                        u=st["u"], v=st["v"], t=st["t"], mu=st["mu"],
-                        ww_row=st["ww_row"], **c2const,
-                        rdx=scalars["rdx"], rdy=scalars["rdy"],
-                        dts=scalars["dts"], cs2=cs2,
-                        dnw=padded["dnw"], fnm=padded["fnm"],
-                        fnp=padded["fnp"], rdnw=padded["rdnw"],
-                        window=(i0, i1, j0, j1), offsets=offs2,
-                        k0=k0, k1=k1, kde=nz - 1, fast=fast, **w_kw,
-                        **({"w": st["w"], "pp": st["pp"]} if with_w
-                           else {}),
-                        **({"n_inner": S} if use_general else {}),
-                        **({"ti": ti} if ti is not None else {}),
-                        tj=tj_loc, vmem_limit=vmem_limit,
-                        interpret=interpret,
-                    )
-                    return out2, None
-
-                state2, _ = jax.lax.scan(block_body, state2,
-                                         length=n_blocks)
-                if ti is not None:
-                    state2 = {k2: lane_ring_strip(v2, I2w)
-                              for k2, v2 in state2.items()}
-
-                def strip3(v):
-                    v = jnp.concatenate([v[S - 1 : nj_loc + S + 1],
-                                         v[nj_loc + 2 * S :]], axis=0)
-                    if i_sh:
-                        v = v[:, :, S - 1 : ni_loc + S + 1]
-                    return v
-
-                def strip2(v):
-                    v = jnp.concatenate([v[S - 1 : nj_loc + S + 1],
-                                         v[nj_loc + 2 * S :]], axis=0)
-                    if i_sh:
-                        v = v[:, S - 1 : ni_loc + S + 1]
-                    return v
-
-                state = {k: (strip3(v) if v.ndim == 3 else strip2(v))
-                         for k, v in state2.items()}
-                rem -= n_blocks * S
-            if rem > 0:
+            if n_steps > 1:
                 def body(state, _):
-                    new_state, _out = substep(state, with_tave=False)
+                    new_state, _out = substep(state)
                     return new_state, None
-                state, _ = jax.lax.scan(body, state, length=rem)
-            state, out = substep(state, final=True)
+                state, _ = jax.lax.scan(body, state, length=n_steps - 1)
+            _, out = substep(state)
 
             res = {}
-            full = out
             for name in out_names:
-                val = full[name]
+                val = out[name]
                 if val.ndim == 3:
                     res[name] = val[1 : 1 + nj_loc, :, 1 : 1 + ni_loc]
                 else:
@@ -723,10 +280,18 @@ class SmallStepLoop:
             )
         return out
 
+    @staticmethod
+    def _scalars(rdx, rdy, dts, epssm):
+        return {"rdx": jnp.asarray(rdx, F), "rdy": jnp.asarray(rdy, F),
+                "dts": jnp.asarray(dts, F), "epssm": jnp.asarray(epssm, F)}
+
+    def lower(self, arrays, rdx, rdy, dts, epssm):
+        """The jitted loop lowered for ``arrays``; ``.compile()`` gives
+        its ``memory_analysis()`` and HLO."""
+        return self._run.lower(arrays, self._scalars(rdx, rdy, dts, epssm))
+
     def __call__(self, arrays, rdx, rdy, dts, epssm):
-        scalars = {"rdx": jnp.asarray(rdx, F), "rdy": jnp.asarray(rdy, F),
-                   "dts": jnp.asarray(dts, F), "epssm": jnp.asarray(epssm, F)}
-        out = self._run(arrays, scalars)
+        out = self._run(arrays, self._scalars(rdx, rdy, dts, epssm))
         nx, ny, _ = self.domain
         trimmed = {}
         for name, val in out.items():

@@ -1,4 +1,4 @@
-"""advance_mu_t, TPU-native JAX path (pure jnp / XLA).
+"""advance_mu_t, the plain JAX path (pure jnp / XLA).
 
 This is NOT a translation of the reference loops: the update is expressed as
 whole-array operations over the ``(j, k, i)`` memory window so XLA can fuse
@@ -10,10 +10,10 @@ module_small_step_em.f90:112-250):
   * Boundary-condition-aware loop bounds become *masks* so every shard of an
     SPMD program runs the identical computation — only shards holding a
     global domain edge apply the shrink.  Masks arrive as per-axis boolean
-    vectors so the same core works single-chip and under ``shard_map``.
-  * The vertical column reduction (dmdt) and scan (ww) stay chip-local along
-    k: the reduction is one ``sum`` over the k axis, the scan one ``cumsum``
-    — both compile to on-chip loops; k is never sharded (SURVEY.md §5).
+    vectors so the same core works on one device and under ``shard_map``.
+  * The vertical column reduction (dmdt) and scan (ww) stay device-local
+    along k: the reduction is one ``sum`` over the k axis, the scan one
+    ``cumsum``; k is never sharded (SURVEY.md §5).
   * ±1 stencil neighbors are static slices of the halo-padded memory window
     (``jnp.roll``), never gathers.
   * Everything is float32 throughout, matching the reference's
@@ -116,7 +116,7 @@ def advance_mu_t_impl(
     )
     dvdxi_act = dvdxi[:, k0 : k1 + 1, :]                   # (j, nk, i)
 
-    # chip-local column reduction (never sharded along k)
+    # device-local column reduction (never sharded along k)
     dmdt = jnp.sum(dnw[None, k0 : k1 + 1, None] * dvdxi_act, axis=1)  # (j, i)
 
     # ---- mu update with epsilon off-centering ---------------------------
@@ -129,7 +129,7 @@ def advance_mu_t_impl(
     muts_out = jnp.where(mask2, muts_new, F(0.0))
     muave_out = jnp.where(mask2, muave_new, F(0.0))
 
-    # ---- ww vertical scan (chip-local cumulative sum along k) -----------
+    # ---- ww vertical scan (device-local cumulative sum along k) -----------
     # ww(k) = ww(k-1) - dnw(k-1)*(dmdt + dvdxi(k-1) + mu_tend)/msfty,
     # integrated up from the input surface level, then minus ww_1.
     steps_k = (

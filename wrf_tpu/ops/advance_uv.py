@@ -90,8 +90,8 @@ def advance_uv_jnp(*, u, v, mu, muu, muv, msfuy, msfvx_inv,
     """Masked SPMD wind update on (halo-padded) local blocks.
 
     ``window`` is in the global coordinates defined by ``offsets`` (the
-    global index of local row/col 0), exactly like the Pallas kernel's
-    contract.  i-1 / j-1 neighbors are rolls; edge wrap cells are masked.
+    global index of local row/col 0), exactly like the mu/t
+    substep's contract.  i-1 / j-1 neighbors are rolls; edge wrap cells are masked.
     """
     F = jnp.float32
     rdx, rdy, dts, cs2 = F(rdx), F(rdy), F(dts), F(cs2)

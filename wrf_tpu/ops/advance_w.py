@@ -35,7 +35,8 @@ through unchanged.
 
 Tiers: FP-order-exact numpy golden path (vectorized over (j, i); k
 sequential) + the native C++ oracle (bit-identical) + a masked SPMD jnp
-path + the fused Pallas path (in-kernel Thomas sweeps over VMEM scratch).
+path + the fused column kernel (ops/substep_triton.py: Thomas sweeps inside
+each program).
 """
 
 from __future__ import annotations
@@ -161,9 +162,9 @@ def advance_w_jnp(*, w, pp, t, rdn, rdnw, dts, epssm, window,
                   k0: int, k1: int, offsets=(0, 0),
                   cw=DEFAULT_CW, gw=DEFAULT_GW):
     """Masked SPMD vertically-implicit substep on (halo-padded) local
-    blocks; same contract as the Pallas kernel (global ``window`` +
+    blocks; same contract as the fused column kernel (global ``window`` +
     ``offsets``).  The tridiagonal sweeps run as ``lax.scan`` over k —
-    chip-local, no communication."""
+    device-local, no communication."""
     F = jnp.float32
     dts, epssm = F(dts), F(epssm)
     cw, gw = F(cw), F(gw)
@@ -210,7 +211,7 @@ def advance_w_jnp(*, w, pp, t, rdn, rdnw, dts, epssm, window,
         F(0.0),
     )
 
-    # Thomas sweeps over k (sequential scans; K is chip-local)
+    # Thomas sweeps over k (sequential scans; K is device-local)
     def fwd(carry, xs):
         cp_km1, dp_km1 = carry
         ak, bk, rk, is_first = xs

@@ -1,4 +1,4 @@
-"""Multi-host bring-up: the executable form of SCALING.md's recipe.
+"""Multi-host bring-up: one process per host over a global device mesh.
 
 Single-host runs need none of this — ``make_mesh`` over ``jax.devices()``
 is enough.  On a multi-host slice, each host process calls
@@ -7,10 +7,9 @@ and feeds its host-local slab of every field through
 :func:`host_local_arrays`; ``SmallStepLoop``/``RK3Integrator`` then run
 unchanged (the programs are SPMD and mesh-shape-agnostic — the same code
 is validated on virtual multi-device meshes in CI, and the collectives are
-nearest-neighbor ``ppermute`` rides on ICI/DCN).
+nearest-neighbor ``ppermute`` exchanges).
 
-Real multi-host TPU hardware is unavailable in this environment, but the
-recipe itself is validated across TRUE process boundaries:
+The recipe is validated across TRUE process boundaries on the CPU:
 ``tools/multihost_check.py`` runs two OS processes (4 virtual CPU devices
 each) through ``jax.distributed.initialize`` + Gloo collectives, builds
 the global (2, 4) mesh, assembles per-process j-slabs with
@@ -35,8 +34,8 @@ from .mesh import make_mesh
 def initialize(**kwargs) -> None:
     """Initialize the JAX distributed runtime (idempotent wrapper).
 
-    On TPU pods the coordinator address / process ids are auto-detected;
-    kwargs pass through.  Explicit configuration errors surface; only the
+    Pass ``coordinator_address``, ``num_processes`` and ``process_id``
+    unless the cluster environment provides them; kwargs pass through.  Explicit configuration errors surface; only the
     single-process no-coordinator case (and double initialization) are
     tolerated silently so the same entry point runs everywhere."""
     try:

@@ -2,10 +2,10 @@
 
 The reference stages 3-row j halos from the host once per kernel launch
 (reference: advance_mu_t_no_async.cu:136-160, 245-306); devices never talk to
-each other.  The TPU-native replacement exchanges the 1-cell halo the stencil
-actually needs (the kernel's reads are ±1 in i and j, SURVEY.md §2) directly
-between neighbor chips with ``lax.ppermute``, which XLA lowers to ICI
-point-to-point transfers.  Wrap-around rows that land on global-domain edges
+each other.  Here the 1-cell halo the stencil actually needs (the kernel's
+reads are ±1 in i and j, SURVEY.md §2) is exchanged directly between
+neighbor devices with ``lax.ppermute``, which XLA lowers to device-to-device
+collective-permutes (NCCL on GPUs).  Wrap-around rows that land on global-domain edges
 carry garbage and are excluded by the compute-window masks — every shard runs
 the identical SPMD program.
 
@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
 
@@ -76,244 +75,6 @@ def refresh_axis(xp: jax.Array, axis: int, axis_name: str,
     starts_hi[axis] = n_int + 1
     xp = lax.dynamic_update_slice(xp, from_prev, starts_lo)
     return lax.dynamic_update_slice(xp, from_next, starts_hi)
-
-
-# ------------------------------------------------------------------ #
-# Ring-S halos — the depth-S temporally-blocked coupled trapezoid needs
-# mu S cells deep (models/small_step.py): S substeps advance information
-# S cells, so the exchange runs 1/S as often at S times the width.
-# ------------------------------------------------------------------ #
-def widen_ring_to(xp: jax.Array, axis: int, axis_name: str | None,
-                  n_interior: int, width: int) -> jax.Array:
-    """Grow an ALREADY ring-1-padded block to ring-``width`` along
-    ``axis`` in one exchange.  Layout: ``[lo_w..lo1, interior(n),
-    hi1..hi_w, <alignment padding>]`` — every ring cell adjacent to the
-    interior, before any padding, so the stencil adjacency
-    ``owned_last+1 = hi1``, ``hi1+1 = hi2`` … holds for interior shards.
-    Sharded axes (``axis_name`` given) pull the ``width-1`` extra cells
-    per side from the neighbors' interiors, which therefore must span at
-    least ``width`` cells; unsharded axes zero-pad (out-of-window,
-    mask-protected)."""
-    n, R = n_interior, width
-    if R < 2:
-        return xp
-    if axis_name is not None and n < R:
-        raise ValueError(f"ring-{R} needs >= {R} interior cells per "
-                         f"shard along {axis_name!r}, got {n}")
-    if axis_name is None:
-        zshape = list(xp.shape)
-        zshape[axis] = R - 1
-        lo_x = jnp.zeros(zshape, xp.dtype)
-        hi_x = lo_x
-    else:
-        # interior cell i sits at ring-1 index 1+i: the extra low cells
-        # are the previous shard's interior [n-R, n-1) (our e -R..-2);
-        # the extra high cells the next shard's interior [1, R)
-        lo_src = lax.slice_in_dim(xp, n - R + 1, n, axis=axis)
-        hi_src = lax.slice_in_dim(xp, 2, R + 1, axis=axis)
-        lo_x = lax.ppermute(lo_src, axis_name, _perm_shift(axis_name, +1))
-        hi_x = lax.ppermute(hi_src, axis_name, _perm_shift(axis_name, -1))
-    head = lax.slice_in_dim(xp, 0, n + 2, axis=axis)   # lo1+interior+hi1
-    tail = lax.slice_in_dim(xp, n + 2, xp.shape[axis], axis=axis)  # pad
-    return jnp.concatenate([lo_x, head, hi_x, tail], axis=axis)
-
-
-def refresh_axis_w(xp: jax.Array, axis: int, axis_name: str,
-                   n_interior: int, width: int) -> jax.Array:
-    """Refresh all ``2*width`` halo cells of a ring-``width`` block along
-    ``axis`` with ONE width-``width`` exchange (owned cells sit at
-    ``[width, width+n)``; halos at ``[0, width)`` and
-    ``[width+n, 2*width+n)`` — :func:`widen_ring_to`'s layout)."""
-    n, R = n_interior, width
-    lo_int = lax.slice_in_dim(xp, R, 2 * R, axis=axis)
-    hi_int = lax.slice_in_dim(xp, n, n + R, axis=axis)
-    from_prev = lax.ppermute(hi_int, axis_name, _perm_shift(axis_name, +1))
-    from_next = lax.ppermute(lo_int, axis_name, _perm_shift(axis_name, -1))
-    starts_lo = [0] * xp.ndim
-    starts_hi = [0] * xp.ndim
-    starts_hi[axis] = n + R
-    xp = lax.dynamic_update_slice(xp, from_prev, starts_lo)
-    return lax.dynamic_update_slice(xp, from_next, starts_hi)
-
-
-def _ring_ids(axis_name: str, interpret: bool):
-    """(next, prev, id_type) neighbor addressing for a ring along
-    ``axis_name`` — MESH-coordinate dicts compiled (multi-axis meshes
-    supported), LOGICAL ints in interpret mode (1-axis only there)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    my = lax.axis_index(axis_name)
-    n = lax.axis_size(axis_name)
-    id_type = (pltpu.DeviceIdType.LOGICAL if interpret
-               else pltpu.DeviceIdType.MESH)
-
-    def nbr(idx):
-        return idx if interpret else {axis_name: idx}
-
-    return nbr(lax.rem(my + 1, n)), nbr(lax.rem(my + n - 1, n)), id_type
-
-
-def _rdma_rows(rows: jax.Array, axis_name: str, collective_id: int,
-               interpret: bool) -> jax.Array:
-    """Ring-exchange a 2-slot staging buffer: slot 0 (my last interior
-    row) goes to the NEXT shard's recv slot 0; slot 1 (my first interior
-    row) to the PREVIOUS shard's recv slot 1.  Returns the received
-    buffer: [from_prev, from_next]."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(stage_ref, recv_ref, send_a, recv_a, send_b, recv_b):
-        nxt, prv, id_type = _ring_ids(axis_name, interpret)
-        if not interpret:
-            # both neighbors must have entered (recv_ref allocated and no
-            # other op still reading its buffer) before any remote write
-            barrier = pltpu.get_barrier_semaphore()
-            pltpu.semaphore_signal(barrier, inc=1, device_id=nxt,
-                                   device_id_type=id_type)
-            pltpu.semaphore_signal(barrier, inc=1, device_id=prv,
-                                   device_id_type=id_type)
-            pltpu.semaphore_wait(barrier, 2)
-        up = pltpu.make_async_remote_copy(
-            src_ref=stage_ref.at[pl.ds(0, 1)],
-            dst_ref=recv_ref.at[pl.ds(0, 1)],
-            send_sem=send_a, recv_sem=recv_a,
-            device_id=nxt, device_id_type=id_type)
-        down = pltpu.make_async_remote_copy(
-            src_ref=stage_ref.at[pl.ds(1, 1)],
-            dst_ref=recv_ref.at[pl.ds(1, 1)],
-            send_sem=send_b, recv_sem=recv_b,
-            device_id=prv, device_id_type=id_type)
-        up.start()
-        down.start()
-        up.wait()
-        down.wait()
-
-    space = {} if interpret else {"memory_space": pltpu.ANY}
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct(rows.shape, rows.dtype),
-        in_specs=[pl.BlockSpec(**space)],
-        out_specs=pl.BlockSpec(**space),
-        scratch_shapes=[pltpu.SemaphoreType.DMA(())] * 4,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True, collective_id=collective_id),
-        interpret=interpret,
-    )(rows)
-
-
-def remote_refresh_axis(xp: jax.Array, axis_name: str,
-                        n_interior: int | None = None,
-                        collective_id: int = 0,
-                        interpret: bool = False) -> jax.Array:
-    """``refresh_axis`` (axis 0) implemented as explicit Pallas
-    ring-neighbor remote DMA (``pltpu.make_async_remote_copy``) instead of
-    XLA ``ppermute`` — the chip-to-chip path SURVEY.md §7 calls for when
-    halo transfers should overlap in-kernel compute.
-
-    Each shard RDMAs its first/last interior rows into its neighbors'
-    staging buffers; ``rdma.wait()`` pairs every send with the matching
-    receive.  Neighbors are addressed by MESH coordinates along
-    ``axis_name`` (``device_id={axis_name: idx}``), so this works on any
-    named axis of a multi-axis mesh — a 2-D ``(j, i)`` decomposition
-    refreshes its j halos with ``axis_name="j"`` while every i-row of the
-    mesh runs its own independent ring.
-
-    TPU layout note: the exchange always runs through a FLATTENED 2-slot
-    staging buffer ``(2, flat)`` with ``flat`` lane-padded to a multiple
-    of 128: Mosaic's DMA slicing of multi-dim HBM refs imposes tiling
-    constraints on the minor dims (measured on v5e: lane extents that are
-    not 128-multiples, and various sublane extents, crash the compile
-    helper), while a 2-D aligned buffer slices cleanly everywhere.  The
-    staging copies are O(row) on each side — the same order as the
-    ppermute form.  Lane-axis (i) halos are single-COLUMN strided slices,
-    hostile to DMA either way, so 2-D meshes keep the ``ppermute`` form
-    for the i exchange (the volume is identical; only the launch
-    mechanics differ).
-    """
-    n_int = (xp.shape[0] - 2) if n_interior is None else n_interior
-
-    # stage the two edge rows, flattened and lane-padded to alignment;
-    # shaped (2, 1, flat) — rank 3 — because 2-D ANY-space buffers crash
-    # the v5e compile helper (measured; 3-D of any flat width compile)
-    rows = jnp.stack([lax.index_in_dim(xp, n_int, 0, keepdims=False),
-                      lax.index_in_dim(xp, 1, 0, keepdims=False)])
-    row_elems = int(np.prod(rows.shape[1:]))
-    flat = rows.reshape(2, 1, row_elems)
-    pad = (-row_elems) % 128
-    if pad:
-        flat = jnp.pad(flat, ((0, 0), (0, 0), (0, pad)))
-
-    recv = _rdma_rows(flat, axis_name, collective_id, interpret)
-    halo_lo = recv[0, 0, :row_elems].reshape(rows.shape[1:])  # prev's last
-    halo_hi = recv[1, 0, :row_elems].reshape(rows.shape[1:])  # next's first
-    starts_lo = [0] * xp.ndim
-    starts_hi = [0] * xp.ndim
-    starts_hi[0] = n_int + 1
-    xp = lax.dynamic_update_slice(xp, halo_lo[None], starts_lo)
-    return lax.dynamic_update_slice(xp, halo_hi[None], starts_hi)
-
-
-def remote_refresh_multi(fields: list[jax.Array], axis_name: str,
-                         n_interior: int, *, recv_only: tuple[str, ...] = (),
-                         collective_id: int = 0,
-                         interpret: bool = False) -> list[jax.Array]:
-    """Refresh the axis-0 halos of SEVERAL already-padded local blocks with
-    ONE remote-DMA kernel launch — one neighbor barrier and one RDMA per
-    direction for the whole field set, where the ppermute form costs a
-    collective pair per field per direction.  At small local tiles the
-    per-substep exchange cost is launch-dominated (SCALING.md's 128² case),
-    so consolidating launches is where the overlap budget actually is.
-
-    ``fields[k]`` with ``recv_only[k] == "hi"`` only receives its high
-    halo row (and only sends its first interior row) — used for fields
-    whose low halo is never read (the coupled loop's ``v``).  Payloads are
-    concatenated per direction, lane-padded, exchanged via
-    :func:`_rdma_rows`, and scattered back with O(row) updates.
-    """
-    sizes = [int(np.prod(x.shape[1:])) for x in fields]
-    ro = list(recv_only) + [""] * (len(fields) - len(recv_only))
-
-    # per-direction payloads: to_next carries last interior rows (becomes
-    # the next shard's LOW halo); to_prev carries first interior rows
-    # (becomes the previous shard's HIGH halo)
-    to_next = [lax.index_in_dim(x, n_interior, 0, keepdims=False).reshape(-1)
-               for x, r in zip(fields, ro) if r != "hi"]
-    to_prev = [lax.index_in_dim(x, 1, 0, keepdims=False).reshape(-1)
-               for x in fields]
-    flat_n = sum(s for s, r in zip(sizes, ro) if r != "hi")
-    flat_p = sum(sizes)
-    flat = max(flat_n, flat_p)
-    pad = (-flat) % 128
-    flat += pad
-
-    dtype = fields[0].dtype
-
-    def payload(parts, n):
-        cat = jnp.concatenate(parts) if parts else jnp.zeros((0,), dtype)
-        return jnp.pad(cat, (0, flat - n))
-
-    rows = jnp.stack([payload(to_next, flat_n),
-                      payload(to_prev, flat_p)]).reshape(2, 1, flat)
-    recv = _rdma_rows(rows, axis_name, collective_id, interpret)
-    from_prev = recv[0, 0]   # previous shard's last interior rows
-    from_next = recv[1, 0]   # next shard's first interior rows
-
-    out = []
-    off_n = 0
-    off_p = 0
-    for x, s, r in zip(fields, sizes, ro):
-        row_shape = (1,) + x.shape[1:]
-        if r != "hi":
-            lo = from_prev[off_n : off_n + s].reshape(row_shape)
-            x = lax.dynamic_update_slice(x, lo, [0] * x.ndim)
-            off_n += s
-        hi = from_next[off_p : off_p + s].reshape(row_shape)
-        starts = [0] * x.ndim
-        starts[0] = n_interior + 1
-        x = lax.dynamic_update_slice(x, hi, starts)
-        off_p += s
-        out.append(x)
-    return out
 
 
 def halo3(x: jax.Array, j_sharded: bool = True, i_sharded: bool = True) -> jax.Array:

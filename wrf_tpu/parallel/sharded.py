@@ -1,23 +1,26 @@
 """SPMD advance_mu_t over a 2-D (j, i) device mesh.
 
-TPU-native replacement for the reference's multi-GPU orchestrator
+Replacement for the reference's multi-GPU orchestrator
 (advance_mu_t_no_async.cu:35-424).  Where the reference synthesizes per-GPU
 j-slab bounds on the host and stages 3-row halos through ``cudaMemcpy``, here:
 
   * global state lives as ``jax.Array`` with ``NamedSharding`` over the mesh
     — the decomposition is 2-D ``(j, i)`` instead of 1-D j-slabs;
   * the step runs under ``jax.shard_map``; the 1-cell halo each stencil
-    needs is exchanged chip-to-chip with ``lax.ppermute`` (ICI), never
-    through the host;
+    needs is exchanged device-to-device with ``lax.ppermute`` (NCCL on
+    GPUs), never through the host;
   * per-shard boundary handling is *mask-based*: every shard runs the same
     program, and the BC-aware window masks (computed from each shard's
     global offset) make only global-edge shards apply the bound shrink —
     this replaces the reference's per-GPU ``jds_g/jts_g/jde_g/jte_g`` bound
     synthesis (advance_mu_t_no_async.cu:108-162);
-  * the vertical dimension stays chip-local (column reduction + scan), the
-    decomposition the reference also chose (one thread owns a full column);
-  * the compute kernel is either the fused Pallas kernel (default on TPU)
-    or the pure-XLA path — both run on identical halo-padded local blocks.
+  * the vertical dimension stays device-local (column reduction + scan),
+    the decomposition the reference also chose (one thread owns a full
+    column);
+  * the substep is the plain XLA path (``kernel="xla"``, this loop's
+    default) or the fused column kernel (``kernel="triton"``,
+    ops/substep_triton.py) — both run on identical halo-padded local
+    blocks.
 
 Multi-step structure: halo construction is hoisted OUT of the device-resident
 ``lax.scan``.  advance_mu_t never reads neighbor values of its in/out fields
@@ -42,16 +45,10 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..grid import ConfigFlags, GridBounds
 from ..ops.advance_mu_t_jnp import advance_mu_t_impl
-from ..ops.advance_mu_t_msteps import (
-    advance_mu_t_multistep_pallas, multistep_tile_params,
-)
-from ..ops.advance_mu_t_pallas import (
-    advance_mu_t_pallas, lean_kwargs, sharded_tile_params,
-)
 from . import halo
 from .mesh import replicated, sharding2, sharding3
 
@@ -67,6 +64,9 @@ STATE_KEYS = ("ww", "mu", "t", "t_ave")  # carried between small steps
 
 #: width of the caller-provided global boundary ring carried by sharded state
 RING = 1
+
+#: substep implementations: the plain XLA path and the fused column kernel
+KERNELS = ("xla", "triton")
 
 
 def domain_window(nx: int, ny: int, nz: int, flags: ConfigFlags):
@@ -90,6 +90,34 @@ def pad_to_mesh(x: np.ndarray | jax.Array, mesh: Mesh) -> jax.Array:
     return jnp.asarray(x, F)
 
 
+def substep_fn(kernel: str, interpret: bool = False):
+    """The mu/t (+ w) substep on halo-padded local blocks: ``kernel="xla"``
+    is :func:`advance_mu_t_impl` (w/pp by the caller's ``advance_w_jnp``),
+    ``"triton"`` the fused column kernel.  ``interpret`` runs the kernel in
+    the Pallas interpreter; only tests ask for it."""
+    if kernel == "xla":
+        if interpret:
+            raise ValueError("interpret applies to kernel='triton' only")
+        return advance_mu_t_impl
+    if kernel == "triton":
+        from ..ops.substep_triton import substep_triton
+
+        def run(*, kde, **kw):
+            del kde
+            return substep_triton(**kw, interpret=interpret)
+        return run
+    raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+
+
+def local_masks(window, j_off, i_off, nj: int, ni: int):
+    """Boolean window masks of a halo-padded local block whose row/column 0
+    sits at global ring coordinates ``(j_off, i_off)``."""
+    i0, i1, j0, j1 = window[:4]
+    i_idx = i_off + jnp.arange(ni)
+    j_idx = j_off + jnp.arange(nj)
+    return (i_idx >= i0) & (i_idx <= i1), (j_idx >= j0) & (j_idx <= j1)
+
+
 class ShardedAdvanceMuT:
     """Compiled SPMD small-step loop over a device mesh.
 
@@ -99,66 +127,50 @@ class ShardedAdvanceMuT:
     multi-step capability the reference's one-launch design lacks
     (SURVEY.md §2 'Distributed communication backend').
 
-    ``kernel``: "pallas" (fused single-pass kernel; default) or "xla".
+    ``kernel``: "xla" (default: on this mu/t-only loop XLA beat the fused
+    kernel on the card at 74x61x32 and 512x512x50) or "triton"
+    (ops/substep_triton.py, GPU only).
     ``vary_winds`` rescales u/v by (1 + 1e-7*step) each step — the full
     acoustic loop updates the winds every small step (advance_uv), so
     benchmarks set this to keep XLA from hoisting the physics out of the
-    scan.  The Pallas path folds the scale into the kernel's loads.
+    scan.
     """
 
     def __init__(self, mesh: Mesh, nx: int, ny: int, nz: int,
                  flags: ConfigFlags, n_steps: int = 1,
-                 kernel: str = "pallas", vary_winds: bool = False,
-                 tj: int | None = None, interpret: bool | None = None,
-                 const_dtype=None, inner_steps: int = 1,
-                 fast: bool = False):
-        """``inner_steps`` > 1 temporally blocks the scan: blocks of S
-        substeps run as ONE fused Pallas pass (ops/advance_mu_t_msteps.py
-        — constants stream from HBM once per S substeps instead of once
-        per substep), with any remainder and the final substep on the
-        single-step kernel.  Pallas kernel only; bit-compatible with
-        ``inner_steps=1``.  ``fast`` additionally re-associates the
-        blocked substeps' f32 arithmetic (log-depth ww cumsum, linear
-        wind folding) — tolerance-class accuracy, not bit-compatible."""
-        if const_dtype is not None and kernel != "pallas":
-            raise ValueError("const_dtype requires the pallas kernel")
-        if inner_steps < 1:
-            raise ValueError("inner_steps must be >= 1")
-        if fast and inner_steps == 1:
-            raise ValueError("fast re-associates the BLOCKED pass: it "
-                             "requires inner_steps > 1 (alone it would "
-                             "silently no-op)")
-        if inner_steps > 1 and kernel != "pallas":
-            raise ValueError("inner_steps requires the pallas kernel")
+                 kernel: str = "xla", vary_winds: bool = False,
+                 interpret: bool = False):
         self.mesh = mesh
         self.flags = flags
         self.domain = (nx, ny, nz)
         self.n_steps = n_steps
+        self.kernel = kernel
         window = domain_window(nx, ny, nz, flags)
         self.window = window
         k0, k1 = window[4], window[5]
-        if interpret is None:
-            interpret = jax.devices()[0].platform == "cpu"
+        step_impl = substep_fn(kernel, interpret)
 
         s3, s2, rep = sharding3(mesh), sharding2(mesh), replicated(mesh)
         self.shardings = {**{n: s3 for n in FIELDS_3D},
                           **{n: s2 for n in FIELDS_2D},
                           **{n: rep for n in FIELDS_1D}}
 
+        has_i_axis = "i" in mesh.shape
+        ip = "i" if has_i_axis else None
         in_specs = ({n: self.shardings[n].spec for n in
                      FIELDS_3D + FIELDS_2D + FIELDS_1D},
                     {n: P() for n in SCALARS})
-        out_specs = {n: (P("j", None, "i") if n in
-                         ("ww", "t", "t_ave") else P("j", "i"))
+        out_specs = {n: (P("j", None, ip) if n in
+                         ("ww", "t", "t_ave") else P("j", ip))
                      for n in ("ww", "mu", "muave", "muts", "mudf", "t", "t_ave")}
-        j_shards, i_shards = mesh.shape["j"], mesh.shape["i"]
+        j_shards, i_shards = mesh.shape["j"], mesh.shape.get("i", 1)
 
         def local_loop(arrs: dict[str, jax.Array], scalars: dict[str, jax.Array]):
             """Whole multi-step loop for one shard (runs under shard_map)."""
             nj_loc, K, ni_loc = arrs["ww"].shape
             j_sh, i_sh = j_shards > 1, i_shards > 1
 
-            # ---- one-time halo construction (ppermute over ICI) --------
+            # ---- one-time halo construction (ppermute) ------------------
             padded: dict[str, jax.Array] = {}
             for name in FIELDS_3D:
                 padded[name] = halo.halo3(arrs[name], j_sharded=j_sh, i_sharded=i_sh)
@@ -167,137 +179,39 @@ class ShardedAdvanceMuT:
             for name in FIELDS_1D:
                 padded[name] = arrs[name]
 
-            # pallas wants (J-2) % tj == 0: pad once, outside the loop.
-            # bf16 constant streams halve most of the footprint: measured
-            # 68.09 MiB at tj=20/I=516/K=50 => ~32 effective row streams
-            # (vs 44 f32), which the budget search turns into tj~17
-            # (0.575-0.579 ms measured at tj=16/18 vs 0.603 at the f32
-            # accounting's tj=12)
-            if inner_steps > 1:
-                # one tj for BOTH kernels (the state is padded once,
-                # outside the scan) — the blocked kernel's larger live
-                # set sets the budget
-                tj_loc, vmem_limit = multistep_tile_params(
-                    K, ni_loc, tj, const_bf16=const_dtype is not None)
-            else:
-                tj_loc, vmem_limit = sharded_tile_params(
-                    K, ni_loc, tj,
-                    streams=32 if const_dtype is not None else 44)
-            padj = (-nj_loc) % tj_loc if kernel == "pallas" else 0
-            if padj:
-                for name in FIELDS_3D:
-                    padded[name] = jnp.pad(padded[name], ((0, padj), (0, 0), (0, 0)))
-                for name in FIELDS_2D:
-                    padded[name] = jnp.pad(padded[name], ((0, padj), (0, 0)))
-            Jl = nj_loc + 2 + padj
-
             # this shard's padded-local-row 0 in global ring coordinates
             j_off = jax.lax.axis_index("j") * nj_loc - 1
-            i_off = jax.lax.axis_index("i") * ni_loc - 1
-            i0, i1, j0, j1 = window[:4]
+            i_off = ((jax.lax.axis_index("i") * ni_loc - 1)
+                     if has_i_axis else -1)
+            i_mask, j_mask = local_masks(window, j_off, i_off,
+                                         nj_loc + 2, ni_loc + 2)
 
-            if kernel == "pallas":
-                lean_kw = lean_kwargs(padded, scalars["rdx"],
-                                      scalars["rdy"], scalars["dts"], k0, k1)
-                if const_dtype is not None:
-                    # reduced-precision constant streams (see the kernel's
-                    # _ingest3): cast ONCE per invocation, outside the
-                    # scan — u/v are read-only here (wind_scale path), so
-                    # every 3-D stream except the carried t is narrowed
-                    for n in ("u", "v", "u_1", "v_1", "ww_1", "ft", "t_1"):
-                        padded[n] = padded[n].astype(const_dtype)
-                    lean_kw = {k: (v.astype(const_dtype) if v.ndim == 3
-                                   and k != "ww1_k0" else v)
-                               for k, v in lean_kw.items()}
+            def step_fn(ins, wscale):
+                ins = {**ins, "u": ins["u"] * wscale, "v": ins["v"] * wscale}
+                return step_impl(
+                    **ins, **scalars, i_mask=i_mask, j_mask=j_mask,
+                    k0=k0, k1=k1, kde=nz - 1,
+                )
 
-                def step_fn(ins, wscale, with_tave=True, ww_mode="full"):
-                    lean = ww_mode == "lite"
-                    return advance_mu_t_pallas(
-                        **ins, **(lean_kw if lean else {}), **scalars,
-                        window=(i0, i1, j0, j1), offsets=(j_off, i_off),
-                        wind_scale=wscale, k0=k0, k1=k1, kde=nz - 1,
-                        with_tave=with_tave, ww_mode=ww_mode, lean=lean,
-                        tj=tj_loc, vmem_limit=vmem_limit,
-                        interpret=interpret,
-                    )
-            else:
-                i_idx = i_off + jnp.arange(ni_loc + 2)
-                j_idx = j_off + jnp.arange(Jl)
-                i_mask = (i_idx >= i0) & (i_idx <= i1)
-                j_mask = (j_idx >= j0) & (j_idx <= j1)
-
-                def step_fn(ins, wscale, with_tave=True, ww_mode="full"):
-                    del with_tave, ww_mode  # XLA path always streams everything
-                    ins = {**ins, "u": ins["u"] * wscale, "v": ins["v"] * wscale}
-                    return advance_mu_t_impl(
-                        **ins, **scalars, i_mask=i_mask, j_mask=j_mask,
-                        k0=k0, k1=k1, kde=nz - 1,
-                    )
-
-            # t_ave is pointwise t_old and never read back, and the carried
-            # ww field is consumed only through its k0 seed row: the pallas
-            # scan drops t_ave's two streams AND ww's read+write per substep
-            # (ww_mode="lite" carries the 2-D seed row; the final call
-            # re-materializes both).
-            carry_keys = (("ww_row", "mu", "t") if kernel == "pallas"
-                          else STATE_KEYS)
-            if kernel == "pallas":
-                padded["ww_row"] = padded["ww"][:, k0, :]
-            const = {k: v for k, v in padded.items() if k not in carry_keys}
-            state0 = {k: padded[k] for k in carry_keys}
+            const = {k: v for k, v in padded.items() if k not in STATE_KEYS}
+            state0 = {k: padded[k] for k in STATE_KEYS}
 
             def wscale_at(n):
                 if not vary_winds:
-                    return 1.0  # static: the kernel skips the multiply
-                return jnp.float32(1.0) + jnp.float32(1e-7) * n.astype(F)
+                    return F(1.0)
+                return F(1.0) + F(1e-7) * n.astype(F)
 
             state = state0
-            n_single0 = 0   # first substep index of the single-step tail
-            if n_steps > 1 and inner_steps > 1:
-                S = inner_steps
-                n_blocks = (n_steps - 1) // S
-
-                def block_body(state, b):
-                    out = advance_mu_t_multistep_pallas(
-                        u=const["u"], v=const["v"], t=state["t"],
-                        t_1=const["t_1"], tconst=lean_kw["tconst"],
-                        dvdxi_const=lean_kw["dvdxi_const"],
-                        ww1_k0=lean_kw["ww1_k0"],
-                        ww_row=state["ww_row"], mu=state["mu"],
-                        mu_tend=const["mu_tend"],
-                        msftx=const["msftx"], msfty=const["msfty"],
-                        **scalars,
-                        dnw=const["dnw"], fnm=const["fnm"],
-                        fnp=const["fnp"], rdnw=const["rdnw"],
-                        window=(i0, i1, j0, j1), offsets=(j_off, i_off),
-                        k0=k0, k1=k1, kde=nz - 1, n_inner=S,
-                        wind_step0=(b * S).astype(F),
-                        wind_scale_step=(1e-7 if vary_winds else 0.0),
-                        fast=fast,
-                        tj=tj_loc, vmem_limit=vmem_limit,
-                        interpret=interpret,
-                    )
-                    return out, None
-
-                if n_blocks:
-                    state, _ = jax.lax.scan(
-                        block_body, state, jnp.arange(n_blocks))
-                n_single0 = n_blocks * S
-            if n_steps - 1 > n_single0:
+            if n_steps > 1:
                 def body(state, n):
-                    out = step_fn({**const, **state}, wscale_at(n),
-                                  with_tave=False,
-                                  ww_mode="lite" if kernel == "pallas"
-                                  else "full")
-                    return {k: out[k] for k in carry_keys}, None
+                    out = step_fn({**const, **state}, wscale_at(n))
+                    return {k: out[k] for k in STATE_KEYS}, None
 
-                state, _ = jax.lax.scan(
-                    body, state, jnp.arange(n_single0, n_steps - 1))
+                state, _ = jax.lax.scan(body, state, jnp.arange(n_steps - 1))
             out = step_fn({**const, **state},
-                          wscale_at(jnp.asarray(n_steps - 1)),
-                          ww_mode="final" if kernel == "pallas" else "full")
+                          wscale_at(jnp.asarray(n_steps - 1)))
 
-            # drop halo rows/cols and pallas padding -> owned interior
+            # drop halo rows/cols -> owned interior
             res = {}
             for name, val in out.items():
                 if val.ndim == 3:

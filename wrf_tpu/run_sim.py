@@ -49,37 +49,17 @@ def main(argv=None) -> int:
                         "WRF Fortran namelist.input text file (&group "
                         "... / blocks; auto-detected)")
     p.add_argument("--steps", type=int, default=1, help="RK3 large steps")
-    p.add_argument("--mesh", default=None, help="JxI mesh shape")
+    p.add_argument("--mesh", default=None,
+                   help="JxI mesh shape (default: all visible devices, "
+                        "factored near-square)")
     p.add_argument("--with-w", action="store_true",
                    help="include the vertically-implicit w/pp substep")
-    p.add_argument("--kernel", default="pallas", choices=["pallas", "xla"])
-    p.add_argument("--halo-backend", default="ppermute",
-                   choices=["ppermute", "rdma", "rdma_overlap"],
-                   help="per-substep halo exchange: XLA collectives, "
-                        "exchange-then-compute remote DMA, or the "
-                        "in-kernel overlapped exchange (rdma_overlap — "
-                        "hidden under the interior tiles' compute)")
-    p.add_argument("--precision", default="f32",
-                   choices=["f32", "bf16-const"],
-                   help="bf16-const narrows the never-written 3-D bases "
-                        "(t_1/u_1/v_1/ww_1/ft and the lean constants) to "
-                        "bf16 in HBM — the loop is bandwidth-bound, so "
-                        "this trades ~0.4%% forcing-proportional error "
-                        "for throughput (state/outputs stay f32)")
-    p.add_argument("--inner-steps", type=int, default=1,
-                   help="temporal blocking: S coupled substeps fused per "
-                        "Pallas pass (depth-S trapezoid; pallas kernel, "
-                        "any mesh, composes with --with-w; not with "
-                        "smdiv).  Pays in acoustic-dominated loops "
-                        "(driver/bench: S=4-8 halves the substep at "
-                        "512^2); inside RK3 the per-stage ring-S "
-                        "prologue offsets it (chip-measured 100-step "
-                        "runs: 15.1 vs 14.7 ms/large-step at ns=6, "
-                        "25.4 vs 23.2 at ns=12) because the closure "
-                        "re-tendencies every stage")
-    p.add_argument("--fast", action="store_true",
-                   help="with --inner-steps: re-associated f32 fast mode "
-                        "(log-depth ww cumsum; XLA-tier tolerance class)")
+    p.add_argument("--kernel", default=None, choices=["triton", "xla"],
+                   help="substep implementation: the fused column kernel "
+                        "(Pallas on the Triton route, GPU only), or the "
+                        "plain XLA path (any backend, e.g. the CPU); by "
+                        "default the kernel with --with-w or on large "
+                        "shards, XLA otherwise")
     p.add_argument("--closure", default="none", choices=["none", "nudge"],
                    help="slow-forcing closure: 'nudge' holds the *_1 "
                         "advecting fields at the base state and recomputes "
@@ -140,19 +120,12 @@ def main(argv=None) -> int:
         mesh_shape,
     )
     nx, ny, nz = case.bounds.ide, case.bounds.jde, case.bounds.kdim
-    import jax.numpy as _jnp
     rk3 = RK3Integrator(mesh, nx, ny, nz, flags,
                         acoustic_steps=dyn["acoustic_steps"],
                         kernel=args.kernel, with_w=args.with_w,
-                        halo_backend=args.halo_backend,
                         smdiv=dyn["smdiv"],
                         snapshot="base" if args.closure == "nudge"
-                        else "stage",
-                        const_dtype=(_jnp.bfloat16
-                                     if args.precision == "bf16-const"
-                                     else None),
-                        inner_steps=args.inner_steps,
-                        fast=args.fast)
+                        else "stage")
 
     dom = case_to_domain(case, with_w=args.with_w)
     start_step = 0
